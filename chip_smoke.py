@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's analysis and conversion paths on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR] [--profile]
 
-Phases (each prints a line; any failure raises, so the script exits
+Three paths, each a ``WorldConfig`` of the converter:
+
+  default  DEFAULT_WORLD: DIO + StoneMask, CheapTrick, group-delay D4C
+           (the main path; batch 128 x 4 s in the rate phase)
+  harvest  Harvest f0, CheapTrick, group-delay D4C (batch 32 x 4 s)
+  nccf     DIO + StoneMask, CheapTrick, D4C "nccf" (batch 16 x 4 s)
+
+Phases (each prints lines; any failure raises, so the script exits
 non-zero and prints no ``"ok"`` line):
 
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the four CUDA kernels (tpuvc_torch/csrc) with nvcc
+  2. build   — compile the six CUDA kernels (tpuvc_torch/csrc) with nvcc
                into build/tpuvc_torch/ and load them.
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               at the shapes the batch-128 x 4 s main path gives it, with
-               the median time of both.
-  4. serve   — tpuvc_torch.convert.pipeline.Converter (full-width VAW-GAN
-               with seeded random weights, bf16 compute, D4C "nccf",
-               ulaw8 transfer) serves six synthetic requests of 1-4 s;
-               every kernel's launch counter must have moved.  A small
-               input is also converted on the card and on the CPU (plain
-               versions, float32 model) and the two must agree.
-  5. rate    — one batch of 128 x 4 s through the same Converter: audio
-               seconds per wall second, latency, per-stage times and peak
-               device memory (informational).  ``--profile`` adds a
-               torch.profiler pass over one call (device time by kernel,
-               device-busy share); ``--out DIR`` keeps the results as
-               JSON there.
+  3. kernels — one analysis per f0 method on the card at the rate phase's
+               shapes records every kernel wrapper's real inputs; each
+               kernel then runs on them against its plain PyTorch version
+               (error, median ms of both, the card's bound for the work,
+               and a PyTorch library call's time where one computes the
+               same function).
+  4. serve   — per path, tpuvc_torch.convert.pipeline.Converter (full-width
+               VAW-GAN, seeded random weights, bf16 compute, ulaw8)
+               serves six synthetic requests of 1-4 s with every launch
+               counter set to 0 just before and read just after; each
+               kernel of the path must have launched.  For the default and
+               Harvest paths a 1 s input is also converted on the card and
+               on the CPU (plain versions, float32 model): waveform SNR
+               >= 30 dB.
+  5. rate    — per path, one batch through the same Converter: audio
+               seconds per wall second (best of 3 calls), latency, per-
+               stage times and peak device memory (informational); the
+               Harvest path also runs once at the 512 s call budget for
+               its peak memory.  ``--profile`` adds a torch.profiler pass
+               over one call of the default and Harvest paths (device
+               time by kernel, device-busy share); ``--out DIR`` keeps
+               the results as JSON there.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -33,6 +47,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -44,21 +59,63 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FS = 16000
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12             # H100 SXM float32, outside tensor cores
 
-KERNELS = [  # name, source, Pallas kernel it replaces
+# name, source, Pallas function it replaces, the path whose launches the
+# record reports
+KERNELS = [
     ("events", "tpuvc_torch/csrc/events.cu",
-     "tpuvc/ops/pallas_events.py:245"),
+     "tpuvc/ops/pallas_events.py:245", "default"),
     ("harmonics", "tpuvc_torch/csrc/harmonics.cu",
-     "tpuvc/ops/pallas_harmonics.py:454"),
+     "tpuvc/ops/pallas_harmonics.py:454", "default"),
     ("window", "tpuvc_torch/csrc/window.cu",
-     "tpuvc/ops/pallas_window.py:54"),
+     "tpuvc/ops/pallas_window.py:54", "default"),
     ("smooth", "tpuvc_torch/csrc/smooth.cu",
-     "tpuvc/ops/pallas_smooth.py:57"),
+     "tpuvc/ops/pallas_smooth.py:57", "default"),
+    ("topk", "tpuvc_torch/csrc/topk.cu",
+     "tpuvc/ops/pallas_topk.py:43", "default"),
+    ("refine", "tpuvc_torch/csrc/harmonics.cu",
+     "tpuvc/ops/pallas_harmonics.py:401", "harvest"),
 ]
+
+# path -> (WorldConfig fields, kernels it runs, rate batch)
+PATHS = {
+    "default": ({}, ("events", "harmonics", "window", "smooth", "topk"), 128),
+    "harvest": ({"f0_method": "harvest"},
+                ("events", "refine", "window", "smooth", "topk"), 32),
+    "nccf": ({"ap_method": "nccf"},
+             ("events", "harmonics", "window", "smooth"), 16),
+}
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def path_cfg(path: str):
+    from tpuvc_torch.dsp.constants import WorldConfig
+    return WorldConfig(**PATHS[path][0])
+
+
+def counters() -> dict:
+    """kernel name -> (module, attribute) of its launch counter."""
+    from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+    return {"events": (events, "launches"),
+            "harmonics": (harmonics, "launches"),
+            "window": (window, "launches"),
+            "smooth": (smooth, "launches"),
+            "topk": (topk, "launches"),
+            "refine": (harmonics, "launches_refine")}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def phase_device():
@@ -79,7 +136,7 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     say(f"[1 device] torch.cuda: {name} (count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda})")
-    say(f"[1 device] nvidia-smi --query-gpu=name,power.limit:")
+    say("[1 device] nvidia-smi --query-gpu=name,power.limit:")
     say(smi)
     say("[1 device] TF32 off for matmul and cuDNN during the comparisons")
     return name, smi
@@ -109,92 +166,6 @@ def cuda_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
-
-
-def _check(name, got, ref, rtol, atol):
-    import torch
-    err = (got - ref).abs()
-    bound = atol + rtol * ref.abs()
-    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version (max abs err {err.max().item():.3e})")
-    return err.max().item()
-
-
-def phase_kernels(dev, batch: int = 128, dur_s: float = 4.0) -> dict:
-    """Kernel vs plain at the main path's shapes for batch x dur_s."""
-    import torch
-    from tpuvc_torch.ops import events, harmonics, smooth, window
-    g = torch.Generator(device=dev).manual_seed(0)
-    n_frames = int(dur_s * FS) // 80 + 1                 # 801
-    rows = batch * n_frames                              # 102528
-    res = {}
-
-    # K1: the DIO bank at 4 kHz, 7 channels per utterance; bit-equal
-    t_d = int(dur_s * FS) // 4
-    tt = torch.arange(t_d, device=dev, dtype=torch.float32) / 4000.0
-    f = 80.0 + 700.0 * torch.rand((batch * 7, 1), generator=g, device=dev)
-    bank = (torch.sin(2 * math.pi * f * tt)
-            + 0.05 * torch.randn((batch * 7, t_d), generator=g, device=dev))
-    ref = events.event_block_pairs_plain(bank, 20)
-    got = events.event_block_pairs(bank, 20)
-    if not torch.equal(got, ref):
-        raise AssertionError("events: kernel is not bit-equal to its plain "
-                             "version")
-    res["events"] = dict(
-        shape=list(bank.shape), max_abs_err=0.0, tol="bit-equal",
-        ms=cuda_ms(lambda: events.event_block_pairs(bank, 20)),
-        plain_ms=cuda_ms(lambda: events.event_block_pairs_plain(bank, 20)))
-    del bank, ref, got
-
-    # K2: StoneMask's pass, one slot, derivative window, folded
-    seg = torch.randn((rows, 1024), generator=g, device=dev)
-    f0 = 47.0 + 1000.0 * torch.rand((rows, 1), generator=g, device=dev)
-    ref = harmonics.harmonic_dft_plain(seg, f0, FS)
-    got = harmonics.harmonic_dft(seg, f0, FS)
-    err = 0.0
-    for gi, ri in zip(got, ref):
-        # reduction order differs (block tree vs torch.sum): rtol 1e-4 and
-        # atol 1e-4 of the largest output, as the CPU tests state
-        err = max(err, _check("harmonics", gi, ri, 1e-4,
-                              1e-4 * ri.abs().max().item()))
-    res["harmonics"] = dict(
-        shape=[rows, 1024], max_abs_err=err, tol="rtol 1e-4, atol 1e-4*max",
-        ms=cuda_ms(lambda: harmonics.harmonic_dft(seg, f0, FS)),
-        plain_ms=cuda_ms(lambda: harmonics.harmonic_dft_plain(seg, f0, FS)))
-    del ref, got
-
-    # K3: CheapTrick's window over [rows, 1024]
-    f0w = 47.0 + 1009.0 * torch.rand(rows, generator=g, device=dev)
-    ref = window.windowed_frames_plain(seg, f0w, FS)
-    got = window.windowed_frames(seg, f0w, FS)
-    err = max(_check("window", got[0], ref[0], 1e-5, 1e-6),
-              _check("window power", got[1], ref[1], 1e-5, 0.0))
-    res["window"] = dict(
-        shape=[rows, 1024], max_abs_err=err, tol="rtol 1e-5, atol 1e-6",
-        ms=cuda_ms(lambda: window.windowed_frames(seg, f0w, FS)),
-        plain_ms=cuda_ms(lambda: window.windowed_frames_plain(seg, f0w, FS)))
-    del seg, ref, got
-
-    # K4: box smoothing of [rows, 513] at the 810 Hz cap
-    ps = torch.pow(10.0, -8.0 * torch.rand((rows, 513), generator=g,
-                                           device=dev))
-    width = 30.0 + 870.0 * torch.rand(rows, generator=g, device=dev)
-    ref = smooth.box_smooth_plain(ps, width, FS, 1024, 810.0)
-    got = smooth.box_smooth(ps, width, FS, 1024, 810.0)
-    err = _check("smooth", got, ref, 1e-5, 1e-12)
-    res["smooth"] = dict(
-        shape=[rows, 513], max_abs_err=err, tol="rtol 1e-5, atol 1e-12",
-        ms=cuda_ms(lambda: smooth.box_smooth(ps, width, FS, 1024, 810.0)),
-        plain_ms=cuda_ms(lambda: smooth.box_smooth_plain(ps, width, FS, 1024,
-                                                         810.0)))
-    del ps, ref, got
-    torch.cuda.empty_cache()
-    for name, r in res.items():
-        say(f"[3 kernels] {name}: shape {r['shape']} max_abs_err "
-            f"{r['max_abs_err']:.3e} ({r['tol']}) kernel {r['ms']:.4f} ms "
-            f"plain {r['plain_ms']:.4f} ms")
-    return res
 
 
 # --- synthetic speakers and assets -------------------------------------
@@ -228,13 +199,11 @@ def utterance(rng, spk: int, dur_s: float) -> np.ndarray:
 def make_assets(xs, spk_ids, cfg, device):
     """Tanhize range and per-speaker log-f0 statistics from an analysis of
     the utterances themselves, as corpus analysis would compute them."""
-    import torch
-    from tpuvc_torch.convert.pipeline import EPSILON, ConverterAssets, analyze
+    from tpuvc_torch.convert.pipeline import EPSILON, ConverterAssets
+    from tpuvc_torch.dsp.world import analyze_batch
     t = max(len(x) for x in xs)
-    batch = torch.tensor(np.stack([np.pad(x, (0, t - len(x))) for x in xs]),
-                         device=device)
-    with torch.no_grad():
-        f0, sp, _ = analyze(batch, cfg)
+    f0, sp, _ = analyze_batch(np.stack([np.pad(x, (0, t - len(x)))
+                                        for x in xs]), cfg, device=device)
     f0, sp = f0.cpu().numpy(), sp.cpu().numpy()
     logs, lf = [], {}
     for i, x in enumerate(xs):
@@ -260,95 +229,332 @@ def make_assets(xs, spk_ids, cfg, device):
         speakers=list(SPEAKERS))
 
 
-def phase_serve(cfg, dev):
+def batch_of(rng, batch: int, dur_s: float):
+    src = [i % 10 for i in range(batch)]
+    return [utterance(rng, s, dur_s) for s in src], src
+
+
+# --- phase 3: every kernel on its real inputs ---------------------------
+
+@contextlib.contextmanager
+def spy(module, name: str, calls: list):
+    """Record the arguments of every call of ``module.name``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def capture_inputs(dev, dur_s: float, batches: dict) -> dict:
+    """path -> kernel -> [(args, kwargs)] of each wrapper call made by one
+    analysis of ``batches[path]`` utterances on ``dev``."""
+    from tpuvc_torch.dsp import (cheaptrick, d4c, dio, harvest, spectral,
+                                 stonemask, world)
+    sites = [(dio, "event_block_pairs", "events"),
+             (stonemask, "harmonic_dft", "harmonics"),
+             (cheaptrick, "windowed_frames", "window"),
+             (spectral, "box_smooth", "smooth"),
+             (d4c, "topk_sum", "topk"),
+             (harvest, "refine_score", "refine")]
+    rng = np.random.default_rng(2)
+    out = {}
+    for path, batch in batches.items():
+        calls = {k: [] for _, _, k in sites}
+        xs, _ = batch_of(rng, batch, dur_s)
+        with contextlib.ExitStack() as stack:
+            for mod, attr, k in sites:
+                stack.enter_context(spy(mod, attr, calls[k]))
+            world.analyze_batch(np.stack(xs), path_cfg(path), device=dev)
+        out[path] = calls
+    return out
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card takes to move nbytes and do ops float32
+    operations, in ms, and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+# float32 operations per element, counted from each kernel's source
+# (a transcendental counts as one): events per cell of the bank (4 event
+# types: crossing test, fraction, time, sorted-pair inserts); the folded
+# harmonic pass per half-lane with and without the derivative window;
+# the window per lane; topk per value and round; smooth per tap.
+OPS_EVENTS_CELL = 57
+OPS_HARM_IF = 121
+OPS_HARM_NO_IF = 91
+OPS_WINDOW_LANE = 16
+
+
+def bound_of(name: str, args, out) -> tuple[float, str]:
+    from tpuvc_torch.ops.smooth import n_taps_half
+    f4 = 4.0
+    if name == "events":
+        bank, stride = args
+        r, t = bank.shape
+        nb = -(-(t - 1) // stride)
+        return _bound(f4 * (r * t + r * 16 * nb), OPS_EVENTS_CELL * r * t)
+    if name == "harmonics":
+        seg, f0 = args[:2]
+        n, w = seg.shape
+        k = f0.shape[1]
+        return _bound(f4 * (n * w + n * k + n * k * 25),
+                      OPS_HARM_IF * n * k * (w // 2))
+    if name == "window":
+        seg, f0 = args[:2]
+        n, w = seg.shape
+        return _bound(f4 * (2 * n * w + 2 * n), OPS_WINDOW_LANE * n * w)
+    if name == "smooth":
+        ps, width, fs, fft_size, max_w = args
+        n, half = ps.shape
+        k = n_taps_half(fs, fft_size, max_w)
+        return _bound(f4 * (2 * n * half + n), 2 * (2 * k + 1) * n * half)
+    if name == "topk":
+        ps, kk = args
+        n, c = ps.shape
+        return _bound(f4 * (n * c + n), 2 * kk * n * c)
+    if name == "refine":
+        seg, f0 = args[:2]
+        n, w = seg.shape
+        n1 = int((f0 > 0).sum())
+        n2 = int((out[0] > 0).sum())
+        return _bound(f4 * (n * w + 3 * f0.numel()),
+                      (w // 2) * (OPS_HARM_IF * n1 + OPS_HARM_NO_IF * n2))
+    raise KeyError(name)
+
+
+def _close(name, got, ref, rtol, atol):
+    import torch
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > atol + rtol * ref.abs()).any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err.max().item():.3e})")
+    return err.max().item()
+
+
+def compare(name: str, got, ref) -> tuple[float, str]:
+    """Hold a kernel's outputs against its plain version's; returns the
+    max abs error and the tolerance applied."""
+    import torch
+    if name in ("events", "topk"):
+        # selections, and sums added in the same order: bit-equal
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name}: kernel is not bit-equal to its "
+                                 "plain version")
+        return 0.0, "bit-equal"
+    if name == "harmonics":
+        # block tree vs torch.sum reduction order, as the CPU tests state
+        err = 0.0
+        for g, r in zip(got, ref):
+            if r is not None:
+                err = max(err, _close(name, g, r, 1e-4,
+                                      1e-4 * r.abs().max().item()))
+        return err, "rtol 1e-4, atol 1e-4*max"
+    if name == "window":
+        return (max(_close(name, got[0], ref[0], 1e-5, 1e-6),
+                    _close(name + " power", got[1], ref[1], 1e-5, 0.0)),
+                "rtol 1e-5, atol 1e-6")
+    if name == "smooth":
+        return (_close(name, got, ref, 1e-5, 1e-7 * ref.abs().max().item()),
+                "rtol 1e-5, atol 1e-7*max")
+    if name == "refine":
+        # the accept gate |refined - f0| <= 0.2 f0 is a threshold on a sum
+        # taken in another order: a slot on its edge may flip; at most
+        # 1e-4 of the candidate slots may.  Refined f0 as the CPU tests
+        # bound it; the score's harmonic sums cancel on noisy frames, so
+        # its absolute bound is 1e-4 of the largest score, as K2's
+        acc_g, acc_r = got[0] > 0, ref[0] > 0
+        n_cand = max(int((acc_g | acc_r).sum()), 1)
+        flips = int((acc_g != acc_r).sum())
+        if flips > 1e-4 * n_cand:
+            raise AssertionError(f"refine: {flips} of {n_cand} slots "
+                                 "accepted by one version only")
+        both = acc_g & acc_r
+        err = _close(name, got[0][both], ref[0][both], 1e-5, 1e-4)
+        s_ref = ref[1][both]
+        s_err = _close(name + " score", got[1][both], s_ref, 1e-4,
+                       1e-4 * s_ref.abs().max().item())
+        return err, (f"refined rtol 1e-5/atol 1e-4 Hz; score rtol 1e-4/"
+                     f"atol 1e-4*max (max abs err {s_err:.3e}); {flips} "
+                     f"of {n_cand} gate flips (<= 1e-4)")
+    raise KeyError(name)
+
+
+def phase_kernels(dev, dur_s: float = 4.0, batches: dict | None = None
+                  ) -> dict:
+    """Each kernel against its plain version on the inputs the analysis
+    gave its wrapper: kernel name -> list of sites (the first is the one
+    the JSON record reports)."""
+    import torch
+    from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+    batches = batches or {"default": PATHS["default"][2],
+                          "harvest": PATHS["harvest"][2]}
+    calls = capture_inputs(dev, dur_s, batches)
+    d, h = calls["default"], calls["harvest"]
+    fns = {"events": (events.event_block_pairs,
+                      events.event_block_pairs_plain),
+           "harmonics": (harmonics.harmonic_dft,
+                         harmonics.harmonic_dft_plain),
+           "window": (window.windowed_frames, window.windowed_frames_plain),
+           "smooth": (smooth.box_smooth, smooth.box_smooth_plain),
+           "topk": (topk.topk_sum, topk.topk_sum_plain),
+           "refine": (harmonics.refine_score, harmonics.refine_score_plain)}
+    library = {"topk": lambda ps, kk: torch.topk(ps, kk).values.sum(-1)}
+    sites = [  # kernel, label, captured call
+        ("events", "DIO stride 20", d["events"][0]),
+        ("events", "Harvest stride 8", h["events"][0]),
+        ("harmonics", "StoneMask pass 1", d["harmonics"][0]),
+        ("window", "CheapTrick", d["window"][0]),
+        ("smooth", "CheapTrick 2f0/3, 810 Hz cap", d["smooth"][0]),
+        ("smooth", "D4C f0, 1056 Hz cap", d["smooth"][1]),
+        ("smooth", "D4C f0/2 signed, 810 Hz cap", d["smooth"][2]),
+        ("topk", "D4C band statistic", d["topk"][0]),
+        ("refine", "Harvest refinement", h["refine"][0]),
+    ]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    res: dict = {}
+    for name, label, (args, kwargs) in sites:
+        kern, plain = fns[name]
+        got = kern(*args, **kwargs)
+        ref = plain(*args, **kwargs)
+        sync()
+        err, tol = compare(name, got, ref)
+        bound_ms, bound_by = bound_of(name, args, got)
+        lib = library.get(name)
+        r = dict(site=label, shape=[list(a.shape) for a in args
+                                    if hasattr(a, "shape")],
+                 max_abs_err=err, tol=tol,
+                 ms=cuda_ms(lambda: kern(*args, **kwargs)),
+                 plain_ms=cuda_ms(lambda: plain(*args, **kwargs)),
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=cuda_ms(lambda: lib(*args)) if lib else None)
+        del got, ref
+        res.setdefault(name, []).append(r)
+        say(f"[3 kernels] {name} ({label}): shapes {r['shape']} max_abs_err "
+            f"{err:.3e} ({tol}); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), library "
+            + (f"{r['library_ms']:.4f} ms" if lib else "none"))
+    del calls, d, h
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+# --- phase 4: serve ------------------------------------------------------
+
+def build_model(dev):
+    """The full-width VAW-GAN in bf16 compute, seeded random weights: the
+    float32 parameters (on the CPU) and the model on ``dev``."""
+    import torch
+    from tpuvc_torch.models.params import init_params, load_model
+    from tpuvc_torch.utils.config import Architecture
+    arch = Architecture(compute_dtype="bfloat16")
+    state = init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    return state, load_model(arch, state, dev)
+
+
+def phase_serve(path: str, dev, state, model,
+                durs=(1.0, 1.7, 2.3, 3.1, 3.6, 4.0)):
+    """Requests of ``durs`` seconds through the path's Converter with the
+    launch counters zeroed just before and read just after; then card vs
+    CPU."""
     import torch
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
                                               synthesis_noise)
-    from tpuvc_torch.models.params import init_params, load_model
-    from tpuvc_torch.models.vae import Architecture
-    from tpuvc_torch.ops import events, harmonics, smooth, window
+    from tpuvc_torch.models.params import load_model
+    from tpuvc_torch.utils.config import Architecture
+    cfg = path_cfg(path)
     rng = np.random.default_rng(0)
-    durs = [1.0, 1.7, 2.3, 3.1, 3.6, 4.0]
-    src = [0, 1, 2, 3, 4, 5]
-    trg = [5, 3, 7, 0, 9, 2]
+    src = [0, 1, 2, 3, 4, 5][:len(durs)]
+    trg = [5, 3, 7, 0, 9, 2][:len(durs)]
     xs = [utterance(rng, s, d) for s, d in zip(src, durs)]
     assets = make_assets(xs, src, cfg, dev)
-    arch = Architecture(compute_dtype="bfloat16")
-    state = init_params(arch, torch.Generator().manual_seed(0))
-    model = load_model(arch, state, dev)
     conv = Converter(model, assets, cfg, transfer_encoding="ulaw8",
                      device=dev)
-
-    mods = {"events": events, "harmonics": harmonics, "window": window,
-            "smooth": smooth}
-    for m in mods.values():
-        m.launches = 0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
+    reset_counts()
     t0 = time.perf_counter()
     ys = conv.convert_batch(xs, [SPEAKERS[i] for i in src],
                             [SPEAKERS[i] for i in trg], seed=0)
+    sync()
     wall = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = read_counts()
     for x, y in zip(xs, ys):
         rms_db = 10 * math.log10(float(np.mean(y.astype(np.float64) ** 2))
                                  + 1e-30)
         if y.shape != x.shape or not np.all(np.isfinite(y)):
-            raise AssertionError(f"output shape {y.shape} vs input "
+            raise AssertionError(f"{path}: output shape {y.shape} vs input "
                                  f"{x.shape}, or non-finite")
         if not (-50.0 < rms_db < -3.0 and np.max(np.abs(y)) <= 1.0):
-            raise AssertionError(f"output level {rms_db:.1f} dBFS is not "
-                                 "speech scale")
-    missing = [k for k, n in launches.items() if n == 0]
+            raise AssertionError(f"{path}: output level {rms_db:.1f} dBFS "
+                                 "is not speech scale")
+    missing = [k for k in PATHS[path][1] if launches[k] == 0]
     if missing and dev.type == "cuda":
-        raise AssertionError(f"main path did not launch: {missing}")
-    say(f"[4 serve] {len(xs)} requests ({sum(durs):.1f} s of audio, "
-        f"{', '.join(f'{d:g}' for d in durs)} s) converted in {wall:.3f} s; "
-        f"kernel launches {launches}; output RMS "
+        raise AssertionError(f"{path} path did not launch: {missing}")
+    say(f"[4 serve] {path}: {len(xs)} requests ({sum(durs):.1f} s of audio,"
+        f" {', '.join(f'{d:g}' for d in durs)} s) converted in {wall:.3f} s;"
+        f" kernel launches {launches}; output RMS "
         + ", ".join(f"{10 * math.log10(float(np.mean(y ** 2))):.1f}"
                     for y in ys) + " dBFS")
+    snr = None
+    if path in ("default", "harvest"):
+        # the card against the CPU on a small input: same params in
+        # float32, same noise; the CPU runs every kernel's plain version
+        arch32 = Architecture()
+        x1 = torch.tensor(xs[1][:FS])[None]
+        n_samples = (x1.shape[1] // cfg.hop + 1) * cfg.hop
+        noise = synthesis_noise([11], n_samples, "cpu")
+        a = assets
+        outs = []
+        for d in (dev.type, "cpu"):
+            t = lambda v: torch.tensor(v, device=d)  # noqa: E731
+            fn = make_batch_convert_fn(load_model(arch32, state, d), cfg)
+            outs.append(fn(x1.to(d), t([3]), t(a.xmin), t(a.xmax),
+                           t(a.f0_mu[[1]]), t(a.f0_sigma[[1]]),
+                           t(a.f0_mu[[3]]), t(a.f0_sigma[[3]]),
+                           noise.to(d)).cpu().numpy()[0])
+        y_gpu, y_cpu = outs
+        snr = 10 * math.log10(np.sum(y_cpu.astype(np.float64) ** 2)
+                              / max(np.sum((y_gpu - y_cpu).astype(np.float64)
+                                           ** 2), 1e-30))
+        say(f"[4 serve] {path}: card vs CPU on a {x1.shape[1] / FS:g} s "
+            f"input (float32 model): waveform SNR {snr:.1f} dB (bound "
+            "30 dB)")
+        if not snr >= 30.0:
+            raise AssertionError(f"{path}: card and CPU disagree: SNR "
+                                 f"{snr:.1f} dB")
+    return conv, launches, snr
 
-    # the card against the CPU on a small input: same params in float32,
-    # same noise; the CPU runs every kernel's plain version
-    arch32 = Architecture()
-    x1 = torch.tensor(xs[1][:FS])[None]
-    n_samples = (FS // cfg.hop + 1) * cfg.hop
-    noise = synthesis_noise([11], n_samples, "cpu")
-    args = lambda d: (x1.to(d), torch.tensor([3], device=d),  # noqa: E731
-                      torch.tensor(assets.xmin, device=d),
-                      torch.tensor(assets.xmax, device=d),
-                      torch.tensor(assets.f0_mu[[1]], device=d),
-                      torch.tensor(assets.f0_sigma[[1]], device=d),
-                      torch.tensor(assets.f0_mu[[3]], device=d),
-                      torch.tensor(assets.f0_sigma[[3]], device=d),
-                      noise.to(d))
-    outs = []
-    for d in (dev.type, "cpu"):
-        fn = make_batch_convert_fn(load_model(arch32, state, d), cfg)
-        outs.append(fn(*args(d)).cpu().numpy()[0])
-    y_gpu, y_cpu = outs
-    snr = 10 * math.log10(np.sum(y_cpu.astype(np.float64) ** 2)
-                          / max(np.sum((y_gpu - y_cpu).astype(np.float64)
-                                       ** 2), 1e-30))
-    say(f"[4 serve] card vs CPU on a 1 s input (float32 model): waveform "
-        f"SNR {snr:.1f} dB (bound 30 dB)")
-    if not snr >= 30.0:
-        raise AssertionError(f"card and CPU disagree: SNR {snr:.1f} dB")
-    return conv, launches
 
+# --- phase 5: rate -------------------------------------------------------
 
-def phase_rate(conv, cfg, card: str, dev, batch: int = 128,
-               dur_s: float = 4.0, profile_dir: str | None = None):
+def phase_rate(path: str, conv, card: str, dev, batch: int,
+               dur_s: float = 4.0, profile_dir: str | None = None,
+               budget_batch: int | None = None) -> dict:
     import torch
     from tpuvc_torch.convert import pipeline
-    from tpuvc_torch.dsp import dio
+    from tpuvc_torch.dsp import d4c, dio, harvest, stonemask
+    from tpuvc_torch.dsp.cheaptrick import cheaptrick
+    cfg = conv.cfg
     rng = np.random.default_rng(1)
-    src = [i % 10 for i in range(batch)]
+    xs, src = batch_of(rng, batch, dur_s)
     trg = [(i * 7 + 3) % 10 for i in range(batch)]
-    xs = [utterance(rng, s, dur_s) for s in src]
     names = lambda ids: [SPEAKERS[i] for i in ids]  # noqa: E731
-    conv.convert_batch(xs, names(src), names(trg), seed=0)   # warm-up
+    call = lambda: conv.convert_batch(  # noqa: E731
+        xs, names(src), names(trg), seed=0)
+    call()                                                   # warm-up
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
@@ -357,16 +563,15 @@ def phase_rate(conv, cfg, card: str, dev, batch: int = 128,
     lat = []
     for _ in range(3):
         t0 = time.perf_counter()
-        conv.convert_batch(xs, names(src), names(trg), seed=0)
+        call()
         lat.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
     best = min(lat)
-    say(f"[5 rate] batch {batch} x {dur_s:g} s, ulaw8: "
+    say(f"[5 rate] {path}: batch {batch} x {dur_s:g} s, ulaw8: "
         f"{batch * dur_s / best:.2f} audio s per wall s (best of 3 calls; "
         f"latencies {', '.join(f'{v:.4f}' for v in lat)} s); peak device "
         f"memory {peak:.2f} GiB; card {card}")
-    prof = (profile_call(lambda: conv.convert_batch(
-        xs, names(src), names(trg), seed=0), profile_dir)
+    prof = (profile_call(call, profile_dir, f"{path}_profile.txt")
             if profile_dir else None)
 
     # per-stage device time of the same batch (host clock around
@@ -384,10 +589,14 @@ def phase_rate(conv, cfg, card: str, dev, batch: int = 128,
         return out
 
     with torch.no_grad():
-        f0c = stage("dio", lambda: dio.dio(x))
-        f0 = stage("stonemask", lambda: pipeline.stonemask(x, f0c))
-        sp = stage("cheaptrick", lambda: pipeline.cheaptrick(x, f0))
-        ap = stage("d4c_nccf", lambda: pipeline.d4c(x, f0, method="nccf"))
+        if cfg.f0_method == "harvest":
+            f0 = stage("harvest", lambda: harvest.harvest(x))
+        else:
+            f0c = stage("dio", lambda: dio.dio(x))
+            f0 = stage("stonemask", lambda: stonemask.stonemask(x, f0c))
+        sp = stage("cheaptrick", lambda: cheaptrick(x, f0))
+        ap = stage(f"d4c_{cfg.ap_method}",
+                   lambda: d4c.d4c(x, f0, method=cfg.ap_method))
         xmin = torch.tensor(a.xmin, device=dev)
         xmax = torch.tensor(a.xmax, device=dev)
         n = f0.shape[1]
@@ -406,22 +615,46 @@ def phase_rate(conv, cfg, card: str, dev, batch: int = 128,
         y = stage("synthesis", lambda: pipeline.synthesize(
             f0, sp_c, ap, noise))
         stage("ulaw8+d2h", lambda: conv._encode_transfer(y).cpu())
-        cands = torch.rand((batch, n, 7), device=dev) * 800.0
-        f0z = torch.where(torch.rand((batch, n), device=dev) < 0.5, 0.0,
+        # the serial candidate-extension loops alone, at this path's grid
+        # (Harvest: 1 ms frames and 10 candidates; DIO: 5 ms and 7)
+        ne, nc = ((int(dur_s * 1000) + 1, 10) if cfg.f0_method == "harvest"
+                  else (n, 7))
+        cands = torch.rand((batch, ne, nc), device=dev) * 800.0
+        f0z = torch.where(torch.rand((batch, ne), device=dev) < 0.5, 0.0,
                           200.0)
-        stage("dio_extend_loops", lambda: dio._extend_scan(
+        stage("extend_loops", lambda: dio._extend_scan(
             dio._extend_scan(f0z, cands, 0.1).flip(-1), cands.flip(1),
             0.1))
-    say("[5 rate] stages (s): " + ", ".join(f"{k} {v:.4f}"
-                                            for k, v in stages.items()))
-    return {"audio_s_per_s": batch * dur_s / best, "latency_s": lat,
-            "peak_gib": peak, "stages_s": stages, "profile": prof}
+    say(f"[5 rate] {path}: stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    out = {"batch": batch, "audio_s_per_s": batch * dur_s / best,
+           "latency_s": lat, "peak_gib": peak, "stages_s": stages,
+           "profile": prof}
+    if budget_batch:
+        # one call at the Converter's per-call budget: does it fit?
+        xs_b, src_b = batch_of(rng, budget_batch, dur_s)
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        conv.convert_batch(xs_b, names(src_b), names(src_b[::-1]), seed=0)
+        sync()
+        wall = time.perf_counter() - t0
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        out["budget"] = {"batch": budget_batch, "wall_s": wall,
+                         "peak_gib": peak_b}
+        say(f"[5 rate] {path}: one call of {budget_batch} x {dur_s:g} s "
+            f"({budget_batch * dur_s:g} s, MAX_AUDIO_S_PER_CALL "
+            f"{conv.MAX_AUDIO_S_PER_CALL:g}) in {wall:.4f} s; peak device "
+            f"memory {peak_b:.2f} GiB")
+    return out
 
 
-def profile_call(fn, out_dir: str) -> dict:
+def profile_call(fn, out_dir: str, fname: str) -> dict:
     """torch.profiler over one call: device time by kernel (table in
-    out_dir/convert_profile.txt), launches, and the device-busy share of
-    the call's wall time (kernels of one stream do not overlap)."""
+    out_dir/fname), launches, and the device-busy share of the call's
+    wall time (kernels of one stream do not overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -441,7 +674,7 @@ def profile_call(fn, out_dir: str) -> dict:
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "convert_profile.txt")
+    path = os.path.join(out_dir, fname)
     with open(path, "w") as f:
         f.write(table)
     say(f"[5 rate] profile: wall {wall:.4f} s (profiler on), device busy "
@@ -451,14 +684,29 @@ def profile_call(fn, out_dir: str) -> dict:
             "device_events": len(kernels)}
 
 
+def kernels_record(kern: dict, launches: dict) -> dict:
+    """The JSON record: one entry per kernel, at its first site."""
+    out = []
+    for name, src, rep, path in KERNELS:
+        first = kern[name][0]
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches[path][name],
+                 "launches_path": path}
+        entry.update({k: first[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+        out.append(entry)
+    return {"kernels": out}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json (and the "
-                    "profile table); nothing is written without it")
+                    "profile tables); nothing is written without it")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass over one call (needs "
-                    "--out)")
+                    help="add a torch.profiler pass over one call of the "
+                    "default and Harvest paths (needs --out)")
     args = ap.parse_args()
     if args.profile and not args.out:
         ap.error("--profile needs --out")
@@ -467,23 +715,26 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_build()
     kern = phase_kernels(dev)
-    from tpuvc_torch.convert.pipeline import WorldConfig
-    cfg = WorldConfig(ap_method="nccf")
-    conv, launches = phase_serve(cfg, dev)
-    rate = phase_rate(conv, cfg, smi, dev,
-                      profile_dir=args.out if args.profile else None)
+    state, model = build_model(dev)
+    launches, snrs, rates = {}, {}, {}
+    for path in PATHS:
+        conv, launches[path], snrs[path] = phase_serve(path, dev, state,
+                                                       model)
+        rates[path] = phase_rate(
+            path, conv, smi, dev, PATHS[path][2],
+            profile_dir=(args.out if args.profile and path != "nccf"
+                         else None),
+            budget_batch=128 if path == "harvest" else None)
+        del conv
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
-                       "rate": rate}, f, indent=1)
+                       "card_vs_cpu_snr_db": snrs, "rate": rates}, f,
+                      indent=1)
     say(f"[5 rate] card: {smi}")
-    record = {"kernels": [
-        {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[n], "max_abs_err": kern[n]["max_abs_err"],
-         "ms": kern[n]["ms"], "plain_ms": kern[n]["plain_ms"]}
-        for n, src, rep in KERNELS]}
-    say(json.dumps(record))
+    say(json.dumps(kernels_record(kern, launches)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

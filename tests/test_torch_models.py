@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from tpuvc.utils.config import Architecture
 from tpuvc_torch.models import params as port_params
 from tpuvc_torch.models.vae import VAWGAN
+from tpuvc_torch.utils import config as port_config
 
 
 @pytest.fixture(scope="module")
@@ -26,8 +27,10 @@ def flax_model():
     tree = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(
             np.float32), tree)
-    port = port_params.load_model(arch, port_params.from_flax(tree, arch))
-    return arch, model, tree, port
+    parch = port_config.Architecture()
+    port = port_params.load_model(parch, port_params.from_flax(tree, parch),
+                                  device="cpu")
+    return parch, model, tree, port
 
 
 def test_from_flax_covers_the_state_dict(flax_model):
@@ -77,9 +80,10 @@ def test_bf16_compute_tracks_float32(flax_model):
     parameters and outputs; bf16 keeps ~3 significant digits, so the
     tanh-bounded frame stays within 0.1 of the float32 decode."""
     arch, _, tree, port = flax_model
-    arch16 = Architecture(compute_dtype="bfloat16")
+    arch16 = port_config.Architecture(compute_dtype="bfloat16")
     port16 = port_params.load_model(arch16,
-                                    port_params.from_flax(tree, arch16))
+                                    port_params.from_flax(tree, arch16),
+                                    device="cpu")
     rng = np.random.default_rng(3)
     u = torch.from_numpy(rng.uniform(-1, 1, (4, 513)).astype(np.float32))
     y = torch.tensor([0, 1, 2, 3])
@@ -96,16 +100,54 @@ def test_bf16_compute_tracks_float32(flax_model):
 
 def test_seeded_init_params():
     """init_params: full width, deterministic in the seed."""
-    arch = Architecture()
-    a = port_params.init_params(arch, torch.Generator().manual_seed(0))
-    b = port_params.init_params(arch, torch.Generator().manual_seed(0))
-    c = port_params.init_params(arch, torch.Generator().manual_seed(1))
+    arch = port_config.Architecture()
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    a = port_params.init_params(arch, gen(0), device="cpu")
+    b = port_params.init_params(arch, gen(0), device="cpu")
+    c = port_params.init_params(arch, gen(1), device="cpu")
     assert set(a) == set(VAWGAN(arch).state_dict())
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["decoder.dense.weight"],
                            c["decoder.dense.weight"])
-    model = port_params.load_model(arch, a)
+    model = port_params.load_model(arch, a, device="cpu")
     with torch.no_grad():
         out = model.decode(*model.encode(torch.zeros(2, 513))[:1],
                            torch.tensor([0, 1]))
     assert out.shape == (2, 513) and torch.isfinite(out).all()
+
+
+def test_architecture_copy_matches_jax(tmp_path):
+    """The port's Architecture has the JAX record's fields and defaults,
+    and an architecture.json written by either loads the same in both,
+    the legacy rules included (no output_activation -> linear head, no
+    d_conditional -> unconditioned critic)."""
+    import dataclasses
+    from tpuvc.utils.config import load_architecture
+    assert (dataclasses.asdict(port_config.Architecture())
+            == dataclasses.asdict(Architecture()))
+    a = Architecture(compute_dtype="bfloat16", y_dim=4)
+    a.save(str(tmp_path / "a.json"))
+    b = port_config.load_architecture(str(tmp_path / "a.json"))
+    assert dataclasses.asdict(b) == dataclasses.asdict(a)
+    legacy = {"encoder": {"kernel": [[7, 1]] * 2, "stride": [[3, 1]] * 2,
+                          "output": [16, 32]}, "hwc": [513, 1, 1],
+              "training": {"lambda": 5.0}}
+    assert (dataclasses.asdict(port_config.Architecture.from_json(legacy))
+            == dataclasses.asdict(Architecture.from_json(legacy)))
+
+
+def test_entry_points_default_to_the_card():
+    """init_params and load_model run on the CUDA card unless told
+    otherwise, and without one they raise instead of falling back."""
+    import inspect
+    for fn in (port_params.init_params, port_params.load_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    arch = port_config.Architecture()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_params.init_params(arch, torch.Generator().manual_seed(0))
+    sd = port_params.init_params(arch, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_params.load_model(arch, sd)

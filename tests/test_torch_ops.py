@@ -1,4 +1,4 @@
-"""The port's four kernels (tpuvc_torch/ops) against the JAX package.
+"""The port's six kernels (tpuvc_torch/ops) against the JAX package.
 
 On the CPU every wrapper takes its plain PyTorch version, so these tests
 hold the plain versions against the Pallas kernels run in interpret mode
@@ -16,7 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from tpuvc_torch.ops import events, harmonics, smooth, window
+from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run several worker processes on one machine: PyTorch's
+    intra-op threads (one per core in each) would contend with the other
+    workers on the small shapes here, so each module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _harmonic(f0, fs=16000, dur_s=0.4, n_harm=10, noise=0.005, seed=0):
@@ -195,7 +206,79 @@ def test_box_smooth_plain_matches_xla_pallas_and_oracle():
     np.testing.assert_allclose(got[1], o, rtol=1e-4, atol=1e-10)
 
 
-@pytest.mark.parametrize("name", ["events", "harmonics", "window", "smooth"])
+def _tied_rows(seed=3, n=50, c=512):
+    """Uniform rows plus the tie patterns of tests/test_ops.py:263."""
+    rng = np.random.default_rng(seed)
+    ps = rng.uniform(0, 1, (n, c)).astype(np.float32)
+    ps[7, :100] = 0.5          # heavy ties
+    ps[13] = 0.0               # all-equal row
+    ps[21, ::2] = ps[21, 1::2]  # pairwise duplicates
+    return ps
+
+
+@pytest.mark.parametrize("kk", [1, 21, 512])
+def test_topk_sum_plain_matches_pallas_and_lax(kk):
+    """K5 plain == topk_sum_pallas (interpret) bit for bit: both pick the
+    maxima in the same order and add them in that order.  Against the sum
+    of lax.top_k (a sort, summed by XLA in another order): rtol 1e-6, the
+    bound tests/test_ops.py holds the Pallas kernel to."""
+    import jax
+    import jax.numpy as jnp
+    from tpuvc.ops.pallas_topk import topk_sum_pallas
+    ps = _tied_rows()
+    got = topk.topk_sum(torch.from_numpy(ps), kk).numpy()
+    pal = np.asarray(topk_sum_pallas(jnp.asarray(ps), kk, interpret=True))
+    assert np.array_equal(got, pal)
+    ref = np.sum(np.asarray(jax.lax.top_k(jnp.asarray(ps), kk)[0]), -1)
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    assert topk.launches == 0
+
+
+def _refine_rows(n=300, w=768, seed=2, fs=16000):
+    """Frame-centred harmonic segments and a candidate table with mixed
+    empty slots: slot 0 near the truth (holes every 7th row), octave
+    errors, candidates ~19% off (the accept gate's edge) and ones at the
+    search floor."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(w) - w // 2) / fs
+    f_true = 120.0 + np.arange(n)
+    seg = np.stack([sum((0.6 / h) * np.sin(2 * np.pi * h * f * t + 0.1 * h)
+                        for h in range(1, 9)) for f in f_true])
+    seg = (seg + 0.01 * rng.standard_normal(seg.shape)).astype(np.float32)
+    f0 = np.zeros((n, 10), np.float32)
+    f0[:, 0] = f_true + rng.uniform(-3, 3, n)
+    f0[::3, 1] = 2.0 * f0[::3, 0]
+    f0[1::4, 2] = 1.19 * f0[1::4, 0]
+    f0[5::11, 4] = 63.9
+    f0[::7, 0] = 0.0
+    return seg, f0
+
+
+def test_refine_score_plain_matches_pallas():
+    """K6 plain == refine_score_pallas (interpret, fold on) on 300 rows
+    with mixed empty slots.  Both run _refine_math on folded sums taken in
+    another order (reduction-order rounding through the IF ratio): the
+    bounds tests/test_ops.py holds the merged kernel to against the split
+    route, rtol 1e-5 / atol 1e-4 Hz for refined f0 and rtol 1e-4 / atol
+    1e-5 for the score; empty and rejected slots are 0 in both."""
+    import jax.numpy as jnp
+    from tpuvc.ops.pallas_harmonics import refine_score_pallas
+    seg, f0 = _refine_rows()
+    ref = refine_score_pallas(jnp.asarray(seg), jnp.asarray(f0), 16000,
+                              floor=63.9, limit=0.2, interpret=True)
+    got = harmonics.refine_score(torch.from_numpy(seg), torch.from_numpy(f0),
+                                 16000, 63.9, 0.2)
+    r_ref, s_ref = (np.asarray(v) for v in ref)
+    r_got, s_got = (v.numpy() for v in got)
+    assert np.array_equal(r_got > 0, r_ref > 0)
+    assert (r_got > 0).sum() > 300 and (r_got[:, 5:] == 0).all()
+    np.testing.assert_allclose(r_got, r_ref, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(s_got, s_ref, rtol=1e-4, atol=1e-5)
+    assert harmonics.launches_refine == 0
+
+
+@pytest.mark.parametrize("name", ["events", "harmonics", "window", "smooth",
+                                  "topk", "refine"])
 def test_wrappers_refuse_wrong_inputs(name):
     """Every wrapper checks dtype and shape before dispatching."""
     x64 = torch.zeros((4, 1024), dtype=torch.float64)
@@ -206,6 +289,11 @@ def test_wrappers_refuse_wrong_inputs(name):
             harmonics.harmonic_dft(x64, torch.ones((4, 1)), 16000)
         elif name == "window":
             window.windowed_frames(x64, torch.ones(4), 16000)
+        elif name == "topk":
+            topk.topk_sum(x64, 21)
+        elif name == "refine":
+            harmonics.refine_score(x64, torch.ones((4, 10)), 16000, 63.9,
+                                   0.2)
         else:
             smooth.box_smooth(torch.zeros((4, 500)), torch.ones(4), 16000,
                               1024, 810.0)
@@ -282,3 +370,31 @@ def test_smooth_kernel_matches_plain(cuda):
     got = smooth.box_smooth(ps.to(cuda), width.to(cuda), 16000, 1024, 810.0)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-5,
                                atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_topk_kernel_matches_plain(cuda):
+    """Bit-equal: the same picks added in the same order."""
+    ps = torch.from_numpy(np.concatenate([_tied_rows(), _tied_rows(4, 300)]))
+    for kk in (1, 21, 512):
+        ref = topk.topk_sum_plain(ps, kk)
+        n0 = topk.launches
+        got = topk.topk_sum(ps.to(cuda), kk).cpu()
+        assert topk.launches == n0 + 1
+        assert torch.equal(got, ref), kk
+
+
+@pytest.mark.gpu
+def test_refine_kernel_matches_plain(cuda):
+    """The block reductions sum in another order than torch.sum: the CPU
+    test's bounds (rtol 1e-5 / atol 1e-4 Hz refined, rtol 1e-4 / atol 1e-5
+    score), and the same slots accepted."""
+    seg, f0 = (torch.from_numpy(a) for a in _refine_rows())
+    ref = harmonics.refine_score_plain(seg, f0, 16000, 63.9, 0.2)
+    n0 = harmonics.launches_refine
+    got = harmonics.refine_score(seg.to(cuda), f0.to(cuda), 16000, 63.9, 0.2)
+    assert harmonics.launches_refine == n0 + 1
+    r_got, s_got = (v.cpu().numpy() for v in got)
+    assert np.array_equal(r_got > 0, ref[0].numpy() > 0)
+    np.testing.assert_allclose(r_got, ref[0].numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(s_got, ref[1].numpy(), rtol=1e-4, atol=1e-5)

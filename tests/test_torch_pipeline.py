@@ -1,5 +1,6 @@
-"""The port's main path (tpuvc_torch.convert.pipeline) against the JAX
-package's batched converter, and the port's boundaries: no JAX inside it,
+"""The port's conversion paths (tpuvc_torch.convert.pipeline) against the
+JAX package's batched converter, and the port's boundaries: no JAX and no
+JAX package inside it or in chip_smoke.py, the card as its default device,
 and no CPU stand-in for the card in chip_smoke.py."""
 
 import os
@@ -14,31 +15,46 @@ import jax
 import jax.numpy as jnp
 
 from tests.conftest import make_speech_like
-from tpuvc.dsp.constants import WorldConfig
 from tpuvc.utils.config import Architecture
 from tpuvc.utils.metrics import mcd
+from tpuvc_torch.dsp.constants import DEFAULT_WORLD, WorldConfig
+from tpuvc_torch.utils import config as port_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = WorldConfig(ap_method="nccf")
 SEEDS = np.array([5, 9], np.int32)
 
 
-@pytest.fixture(scope="module")
-def slice_run():
-    """Batch 2 x 0.5 s through both converters from the same params,
-    statistics and noise.  JAX: one jit holding make_batch_convert_fn and
-    the per-utterance analysis/decode intermediates (one compile)."""
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run several worker processes on one machine: PyTorch's
+    intra-op threads (one per core in each) would contend with the other
+    workers on the small shapes here, so each module runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _slice(cfg):
+    """Batch 2 x 0.5 s through both converters under ``cfg`` from the same
+    params, statistics and noise.  JAX: one jit holding
+    make_batch_convert_fn and the per-utterance analysis/decode
+    intermediates (one compile)."""
     from tpuvc.convert.pipeline import (_denormalize_sp, _normalize_sp,
                                         make_batch_convert_fn)
     from tpuvc.dsp.cheaptrick import cheaptrick
+    from tpuvc.dsp.constants import WorldConfig as JaxConfig
     from tpuvc.dsp.dio import dio
     from tpuvc.dsp.stonemask import stonemask
     from tpuvc.models.vae import init_params, make_model
     from tpuvc.ops.ulaw import ulaw_encode
     from tpuvc_torch.convert import pipeline as port
+    from tpuvc_torch.dsp import world as port_world
     from tpuvc_torch.models import params as port_params
     from tpuvc_torch.ops import ulaw as port_ulaw
 
+    jcfg = JaxConfig(ap_method=cfg.ap_method, f0_method=cfg.f0_method)
     arch = Architecture()
     model = make_model(arch)
     tree = init_params(model, arch, jax.random.PRNGKey(0))
@@ -55,7 +71,7 @@ def slice_run():
         jax.random.PRNGKey(int(s)), (n_samples,), jnp.float32))
         for s in SEEDS])
 
-    base = make_batch_convert_fn(model, CFG)
+    base = make_batch_convert_fn(model, jcfg)
 
     @jax.jit
     def run(params, xs, y, xmin, xmax, mu_s, sd_s, mu_t, sd_t, seeds):
@@ -78,13 +94,14 @@ def slice_run():
                                          mu_t, sd_t, SEEDS)))]
 
     t = lambda a: torch.tensor(a)  # noqa: E731
-    pmodel = port_params.load_model(arch, port_params.from_flax(
-        jax.tree_util.tree_map(np.asarray, tree), arch))
-    wav = port.make_batch_convert_fn(pmodel, CFG)(
+    parch = port_config.Architecture()
+    pmodel = port_params.load_model(parch, port_params.from_flax(
+        jax.tree_util.tree_map(np.asarray, tree), parch), device="cpu")
+    wav = port.make_batch_convert_fn(pmodel, cfg)(
         t(xs), t(y_trg), t(xmin), t(xmax), t(mu_s), t(sd_s), t(mu_t),
         t(sd_t), t(noise))
     with torch.no_grad():
-        f0, sp, _ = port.analyze(t(xs), CFG)
+        f0, sp, _ = port_world.world_features(t(xs), cfg)
         u, en = port._normalize_sp(sp, t(xmin), t(xmax))
         z, _ = pmodel.encode(u.reshape(-1, 513))
         uc = pmodel.decode(z, t(y_trg).long().repeat_interleave(
@@ -95,10 +112,20 @@ def slice_run():
     return ref, got
 
 
-def test_slice_f0(slice_run):
-    """Voicing agrees on >= 98% of frames and voiced f0 to 1e-3 relative
-    (DIO's event times are bit-exact; FFT rounding can flip a threshold)."""
-    ref, got = slice_run
+@pytest.fixture(scope="module")
+def slice_run():
+    """The nccf slice (WorldConfig(ap_method="nccf"))."""
+    return _slice(CFG)
+
+
+@pytest.fixture(scope="module")
+def default_run():
+    """The DEFAULT_WORLD slice: DIO + StoneMask, group-delay D4C."""
+    return _slice(DEFAULT_WORLD)
+
+
+def _check_f0(run):
+    ref, got = run
     fr, fg = ref[2], got[2]
     assert fr.shape == fg.shape
     assert np.mean((fr > 0) == (fg > 0)) >= 0.98
@@ -107,23 +134,15 @@ def test_slice_f0(slice_run):
     np.testing.assert_allclose(fg[both], fr[both], rtol=1e-3)
 
 
-def test_slice_spectra_mcd(slice_run):
-    """Mel-cepstral distortion between the port's and JAX's envelopes,
-    < 0.1 dB both for the analysis and after the model: the gap is the
-    JAX side's float32 matmul DFTs (~1e-4 rad matrix phase error) carried
-    through a float32 encode/decode.  Measured 0.008-0.018 dB."""
-    ref, got = slice_run
+def _check_mcd(run):
+    ref, got = run
     for b in range(2):
         assert mcd(got[3][b], ref[3][b], 16000) < 0.1
         assert mcd(got[4][b], ref[4][b], 16000) < 0.1
 
 
-def test_slice_waveform_snr(slice_run):
-    """Waveform SNR of the port against JAX >= 40 dB with the same noise:
-    the envelope gaps above reach the minimum-phase responses, and the
-    excitation's float32 phase cumsum is summed in another order; measured
-    57-59 dB."""
-    ref, got = slice_run
+def _check_snr(run):
+    ref, got = run
     assert got[0].shape == ref[0].shape
     assert np.all(np.isfinite(got[0]))
     for b in range(2):
@@ -132,19 +151,70 @@ def test_slice_waveform_snr(slice_run):
         assert snr >= 40.0, snr
 
 
-def test_slice_ulaw_codes(slice_run):
-    """ulaw8 codes: >= 90% identical and >= 98% within one step, and the
-    decoded waveforms agree to 30 dB SNR.  mu-law steps are finest at
-    zero, so the ~1e-3 waveform gap moves samples near zero crossings by
-    many codes (measured: 94-96% identical, 99.1-99.5% within one)."""
+def _check_ulaw(run):
     from tpuvc_torch.ops.ulaw import ulaw_decode
-    ref, got = slice_run
+    ref, got = run
     assert got[1].dtype == np.uint8 and got[1].shape == ref[1].shape
     diff = np.abs(got[1].astype(np.int32) - ref[1].astype(np.int32))
     assert np.mean(diff == 0) >= 0.90
     assert np.mean(diff <= 1) >= 0.98
     r, g = ulaw_decode(ref[1]), ulaw_decode(got[1])
     assert 10 * np.log10(np.sum(r ** 2) / np.sum((g - r) ** 2)) >= 30.0
+
+
+def test_slice_f0(slice_run):
+    """Voicing agrees on >= 98% of frames and voiced f0 to 1e-3 relative
+    (DIO's event times are bit-exact; FFT rounding can flip a threshold)."""
+    _check_f0(slice_run)
+
+
+def test_slice_spectra_mcd(slice_run):
+    """Mel-cepstral distortion between the port's and JAX's envelopes,
+    < 0.1 dB both for the analysis and after the model: the gap is the
+    JAX side's float32 matmul DFTs (~1e-4 rad matrix phase error) carried
+    through a float32 encode/decode.  Measured 0.008-0.018 dB."""
+    _check_mcd(slice_run)
+
+
+def test_slice_waveform_snr(slice_run):
+    """Waveform SNR of the port against JAX >= 40 dB with the same noise:
+    the envelope gaps above reach the minimum-phase responses, and the
+    excitation's float32 phase cumsum is summed in another order; measured
+    57-59 dB."""
+    _check_snr(slice_run)
+
+
+def test_slice_ulaw_codes(slice_run):
+    """ulaw8 codes: >= 90% identical and >= 98% within one step, and the
+    decoded waveforms agree to 30 dB SNR.  mu-law steps are finest at
+    zero, so the ~1e-3 waveform gap moves samples near zero crossings by
+    many codes (measured: 94-96% identical, 99.1-99.5% within one)."""
+    _check_ulaw(slice_run)
+
+
+def test_default_slice_f0(default_run):
+    """DEFAULT_WORLD: the f0 path is the nccf slice's (D4C does not feed
+    back): voicing >= 98%, voiced f0 within 1e-3 relative."""
+    _check_f0(default_run)
+
+
+def test_default_slice_spectra_mcd(default_run):
+    """DEFAULT_WORLD: MCD < 0.1 dB for the analysis and converted
+    envelopes, as for the nccf slice (D4C does not feed the model)."""
+    _check_mcd(default_run)
+
+
+def test_default_slice_waveform_snr(default_run):
+    """DEFAULT_WORLD with the same jax-made noise: SNR >= 40 dB.  The
+    group-delay aperiodicity agrees within ~1e-3 dB
+    (test_torch_dsp.py::test_d4c_group_delay_matches_jax), so the gap is
+    the envelope and excitation rounding of the nccf slice."""
+    _check_snr(default_run)
+
+
+def test_default_slice_ulaw_codes(default_run):
+    """DEFAULT_WORLD ulaw8 codes, under the nccf slice's bounds."""
+    _check_ulaw(default_run)
 
 
 def _assets():
@@ -163,11 +233,11 @@ def test_converter_convert_batch(encoding):
     per-utterance noise, up to the transfer codec."""
     from tpuvc_torch.convert import pipeline
     from tpuvc_torch.models import params
-    arch = Architecture(y_dim=3)
+    arch = port_config.Architecture(y_dim=3)
     model = params.load_model(arch, params.init_params(
-        arch, torch.Generator().manual_seed(0)))
+        arch, torch.Generator().manual_seed(0), device="cpu"), device="cpu")
     conv = pipeline.Converter(model, _assets(), CFG, bucket_s=0.25,
-                              transfer_encoding=encoding)
+                              transfer_encoding=encoding, device="cpu")
     xs = [make_speech_like(k, dur_s=d)[0].astype(np.float32)
           for k, d in (("sweep", 0.3), ("vibrato", 0.45))]
     ys = conv.convert_batch(xs, ["A", "B"], ["B", "A"], seed=4)
@@ -190,24 +260,62 @@ def test_converter_convert_batch(encoding):
         conv.convert_batch(xs[:1], ["C"], ["A"])
 
 
+def test_converter_harvest_path_and_default_device():
+    """Converter with WorldConfig(f0_method="harvest") converts on the
+    CPU when asked (outputs finite at their own lengths, voiced), and the
+    Converter defaults to the card: without one it raises instead of
+    falling back."""
+    import inspect
+    from tpuvc_torch.convert import pipeline
+    from tpuvc_torch.models import params
+    arch = port_config.Architecture(y_dim=3)
+    model = params.load_model(arch, params.init_params(
+        arch, torch.Generator().manual_seed(0), device="cpu"), device="cpu")
+    cfg = WorldConfig(f0_method="harvest")
+    conv = pipeline.Converter(model, _assets(), cfg, bucket_s=0.25,
+                              device="cpu")
+    xs = [make_speech_like(k, dur_s=d)[0].astype(np.float32)
+          for k, d in (("vibrato", 0.4), ("sweep", 0.3))]
+    ys = conv.convert_batch(xs, ["A", "B"], ["B", "A"], seed=1)
+    assert [len(y) for y in ys] == [len(x) for x in xs]
+    assert all(np.all(np.isfinite(y)) and np.std(y) > 1e-3 for y in ys)
+    assert (inspect.signature(pipeline.Converter).parameters["device"]
+            .default == "cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pipeline.Converter(model, _assets(), cfg)
+
+
 def test_port_imports_no_jax():
-    """Every tpuvc_torch module imports without jax, jaxlib, flax, optax
-    or orbax (the card's machine has none of them)."""
+    """Every tpuvc_torch module, chip_smoke.py and every module
+    chip_smoke.py imports (inside its functions too) import without jax,
+    jaxlib, flax, optax, orbax or any module of the JAX package tpuvc
+    (the card's machine has none of them)."""
     code = (
-        "import pkgutil, sys, importlib, tpuvc_torch\n"
+        "import ast, pkgutil, sys, importlib, tpuvc_torch\n"
         "for m in pkgutil.walk_packages(tpuvc_torch.__path__, "
         "'tpuvc_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax')]\n"
         "n = sum(m.startswith('tpuvc_torch') for m in sys.modules)\n"
+        "import chip_smoke\n"
+        "tree = ast.parse(open(chip_smoke.__file__).read())\n"
+        "for node in ast.walk(tree):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        for a in node.names: importlib.import_module(a.name)\n"
+        "    elif isinstance(node, ast.ImportFrom):\n"
+        "        mod = importlib.import_module(node.module)\n"
+        "        for a in node.names:\n"
+        "            if not hasattr(mod, a.name):\n"
+        "                importlib.import_module(node.module + '.' + a.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpuvc')]\n"
         "print(n, bad)\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 20
+    assert int(out.stdout.split()[0]) >= 30
 
 
 def test_chip_smoke_refuses_the_cpu(tmp_path):
@@ -235,16 +343,34 @@ def test_chip_smoke_refuses_the_cpu(tmp_path):
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's kernel, serve and rate phases run end to end on the
-    CPU at a small size (every wrapper takes its plain version, so nothing
-    launches and the kernel/plain errors are exactly 0)."""
+    CPU at a small size for every path (every wrapper takes its plain
+    version, so nothing launches and the kernel/plain errors are exactly
+    0), and its JSON record names all six kernels with every key."""
     import chip_smoke
-    from tpuvc_torch.ops import events
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
-    kern = chip_smoke.phase_kernels(cpu, batch=1, dur_s=0.5)
-    assert [k for k, _, _ in chip_smoke.KERNELS] == list(kern)
-    assert all(r["max_abs_err"] == 0.0 for r in kern.values())
-    conv, launches = chip_smoke.phase_serve(CFG, cpu)
-    assert launches == dict.fromkeys(kern, 0) and events.launches == 0
-    rate = chip_smoke.phase_rate(conv, CFG, "cpu", cpu, batch=2, dur_s=1.0)
-    assert rate["audio_s_per_s"] > 0 and rate["profile"] is None
+    kern = chip_smoke.phase_kernels(cpu, dur_s=0.5,
+                                    batches={"default": 1, "harvest": 1})
+    assert [k for k, _, _, _ in chip_smoke.KERNELS] == list(kern)
+    assert all(r["max_abs_err"] == 0.0 for v in kern.values() for r in v)
+    assert len(kern["events"]) == 2 and len(kern["smooth"]) == 3
+    state, model = chip_smoke.build_model(cpu)
+    launches = {}
+    for path in chip_smoke.PATHS:
+        conv, launches[path], snr = chip_smoke.phase_serve(
+            path, cpu, state, model, durs=(0.6, 1.1))
+        assert launches[path] == dict.fromkeys(kern, 0)
+        assert (snr is None) == (path == "nccf")
+        rate = chip_smoke.phase_rate(
+            path, conv, "cpu", cpu, batch=2, dur_s=0.5,
+            budget_batch=3 if path == "harvest" else None)
+        assert rate["audio_s_per_s"] > 0 and rate["profile"] is None
+    assert rate["stages_s"]["d4c_nccf"] > 0
+    record = chip_smoke.kernels_record(kern, launches)["kernels"]
+    assert [r["name"] for r in record] == list(kern)
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    assert all(keys <= set(r) and r["bound_ms"] > 0 for r in record)
+    for r in record:
+        assert os.path.exists(os.path.join(ROOT, r["source"]))

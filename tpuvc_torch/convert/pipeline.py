@@ -1,10 +1,12 @@
 """Batched conversion: analysis -> VAE speaker swap -> synthesis.
 
 Port of ``tpuvc/convert/pipeline.py``.  Per utterance of a [B, T] batch:
-DIO + StoneMask f0, CheapTrick envelope, D4C aperiodicity; the envelope
-is energy-normalised, log10'd and mapped to [-1, 1] (Tanhize), encoded,
-decoded with the target speaker's code and de-normalised; f0 gets the
-log-linear transform; minimum-phase synthesis makes the waveform.
+the WORLD analysis of ``dsp/world.py`` (DIO + StoneMask or Harvest f0,
+CheapTrick envelope, D4C aperiodicity; ``DEFAULT_WORLD`` is DIO +
+StoneMask with group-delay D4C); the envelope is energy-normalised,
+log10'd and mapped to [-1, 1] (Tanhize), encoded, decoded with the target
+speaker's code and de-normalised; f0 gets the log-linear transform;
+minimum-phase synthesis makes the waveform.
 PyTorch runs eagerly, so there is no jit boundary: the batch is written
 out as a leading dimension.
 
@@ -20,14 +22,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpuvc.dsp.constants import DEFAULT_WORLD, EPSILON, WorldConfig
 from tpuvc_torch.convert.f0 import convert_f0
-from tpuvc_torch.dsp.cheaptrick import cheaptrick
-from tpuvc_torch.dsp.d4c import d4c
-from tpuvc_torch.dsp.dio import dio
-from tpuvc_torch.dsp.stonemask import stonemask
-from tpuvc_torch.dsp.synthesis import synthesize
+from tpuvc_torch.dsp.constants import DEFAULT_WORLD, EPSILON, WorldConfig
+from tpuvc_torch.dsp.synthesis import synthesis_noise, synthesize
+from tpuvc_torch.dsp.world import world_features
+from tpuvc_torch.io.wav import resample
 from tpuvc_torch.ops import ulaw
+from tpuvc_torch.utils.device import resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,21 +60,6 @@ def _denormalize_sp(u, en, xmin, xmax):
     return torch.pow(10.0, log_sp) * en
 
 
-def analyze(x: torch.Tensor, cfg: WorldConfig = DEFAULT_WORLD):
-    """x [B, T] -> (f0 [B, N], sp [B, N, half], ap [B, N, half])."""
-    if cfg.f0_method != "dio":
-        raise NotImplementedError(
-            f"tpuvc_torch: f0_method={cfg.f0_method!r} is not ported yet "
-            "(ROADMAP.md); use 'dio'")
-    f0_c = dio(x, fs=cfg.fs, hop=cfg.hop, f0_floor=cfg.f0_floor,
-               f0_ceil=cfg.f0_ceil)
-    f0 = stonemask(x, f0_c, hop=cfg.hop, fs=cfg.fs)
-    sp = cheaptrick(x, f0, hop=cfg.hop, fs=cfg.fs, fft_size=cfg.fft_size)
-    ap = d4c(x, f0, hop=cfg.hop, fs=cfg.fs, fft_size=cfg.fft_size,
-             method=cfg.ap_method)
-    return f0, sp, ap
-
-
 def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD):
     """The batched converter over [B, T] utterances with per-utterance
     target speakers and f0 statistics.
@@ -88,7 +74,7 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD):
                 noise):
         xs = xs.to(torch.float32)
         bsz = xs.shape[0]
-        f0, sp, ap = analyze(xs, cfg)
+        f0, sp, ap = world_features(xs, cfg)
         n = f0.shape[1]
         u, en = _normalize_sp(sp, xmin, xmax)
         z_mu, _ = model.encode(u.reshape(bsz * n, -1))
@@ -102,40 +88,30 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD):
     return convert
 
 
-def synthesis_noise(seeds, n_samples: int,
-                    device: torch.device | str) -> torch.Tensor:
-    """Unit white noise [len(seeds), n_samples], one seeded
-    ``torch.Generator`` per utterance."""
-    rows = []
-    for s in np.asarray(seeds).reshape(-1):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s))
-        rows.append(torch.randn(n_samples, generator=g, device=device))
-    return torch.stack(rows)
-
-
 class Converter:
     """Host-facing conversion API (the JAX ``Converter`` without the
     device mesh)."""
 
     # one call's audio-seconds budget: batch 128 x 4 s runs as one call
-    # on the 80 GB card (peak memory: PERF.md)
+    # on the 80 GB card with either f0 method (peak 13.5 GiB with DIO,
+    # 14.7 GiB with Harvest: PERF.md)
     MAX_AUDIO_S_PER_CALL = 512.0
 
     def __init__(self, model, assets: ConverterAssets,
                  cfg: WorldConfig = DEFAULT_WORLD, bucket_s: float = 1.0,
                  transfer_encoding: str = "float32",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         """``transfer_encoding``: "float32", "ulaw8" (1 B/sample) or
         "pcm12" (1.5 B/sample) — the waveform is encoded on the device
-        and decoded on the host."""
+        and decoded on the host.  ``device``: the card by default; the
+        model must already be on it (``models.params.load_model``)."""
         if transfer_encoding not in ("float32", "ulaw8", "pcm12"):
             raise ValueError(f"unknown transfer_encoding "
                              f"{transfer_encoding!r}")
         self.model = model
         self.assets = assets
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.bucket = int(bucket_s * cfg.fs)
         self.transfer_encoding = transfer_encoding
         self._fn = make_batch_convert_fn(model, cfg)
@@ -160,7 +136,6 @@ class Converter:
     def _coerce_fs(self, x: np.ndarray, fs: int | None) -> np.ndarray:
         if fs is None or fs == self.cfg.fs:
             return np.asarray(x)
-        from tpuvc.io.wav import resample
         return resample(np.asarray(x), int(fs), self.cfg.fs)
 
     def _check_speaker_stats(self, *indices: int) -> None:

@@ -13,8 +13,9 @@ import math
 
 import torch
 
-from tpuvc.dsp.constants import (CHEAPTRICK_DEFAULT_F0, CHEAPTRICK_Q1,
-                                 DEFAULT_WORLD, SAFE_GUARD_MINIMUM)
+from tpuvc_torch.dsp.constants import (CHEAPTRICK_DEFAULT_F0,
+                                       CHEAPTRICK_Q1, DEFAULT_WORLD,
+                                       SAFE_GUARD_MINIMUM)
 from tpuvc_torch.dsp.spectral import dc_correction, linear_smoothing
 from tpuvc_torch.ops.dft import cos_fwd, cos_inv, rdft_power
 from tpuvc_torch.ops.framing import frame_signal

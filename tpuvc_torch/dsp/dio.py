@@ -19,10 +19,11 @@ import math
 
 import torch
 
-from tpuvc.dsp.constants import (DEFAULT_WORLD, DIO_ALLOWED_RANGE,
-                                 DIO_CHANNELS_IN_OCTAVE, DIO_SCORE_CUTOFF,
-                                 DIO_TARGET_FS, DIO_VOICE_RANGE_MINIMUM)
 from tpuvc_torch.dsp import filters
+from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, DIO_ALLOWED_RANGE,
+                                       DIO_CHANNELS_IN_OCTAVE,
+                                       DIO_SCORE_CUTOFF, DIO_TARGET_FS,
+                                       DIO_VOICE_RANGE_MINIMUM)
 from tpuvc_torch.ops.arith import rdiv
 from tpuvc_torch.ops.events import event_block_pairs
 

@@ -1,7 +1,8 @@
-"""DIO's decimator and low-pass channel bank, on ``torch.fft``.
+"""The decimator and the DIO/Harvest channel banks, on ``torch.fft``.
 
 Port of ``tpuvc/dsp/filters.py`` (``decimate``, and ``lowpass_bank_fft``
-through ``_fir_bank_fft``), batched over utterances.
+and ``bandpass_bank_fft`` through ``_fir_bank_fft``), batched over
+utterances.
 """
 
 from __future__ import annotations
@@ -42,30 +43,36 @@ def decimate(x: torch.Tensor, ratio: int) -> torch.Tensor:
     return y[..., ::ratio]
 
 
-def lowpass_bank_fft(x: torch.Tensor, fs: float,
-                     boundary_f0s: tuple[float, ...]) -> torch.Tensor:
-    """DIO's bank of Nuttall low-pass filters applied zero-phase in one
-    batched FFT: x [B, T] -> [B, C, T].
+def _fir_bank_fft(x: torch.Tensor, fs: float,
+                  boundary_f0s: tuple[float, ...], periods_half: float,
+                  modulate: bool, normalize_dc: bool) -> torch.Tensor:
+    """A bank of Nuttall-windowed FIRs applied zero-phase in one batched
+    FFT: x [B, T] -> [B, C, T].
 
-    Channel c's FIR is a Nuttall window spanning 2 periods of its boundary
-    f0, normalised to unit DC gain; all channels share a max-length tap
-    grid (masked per channel), and each channel's group delay is removed
-    as a phase ramp so event times line up across channels.  (The JAX
-    ``_fir_bank_fft`` also builds Harvest's band-pass bank; that comes with
-    the Harvest port.)
+    Channel c's FIR is a Nuttall window spanning ``2 * periods_half``
+    periods of its boundary frequency bf, optionally modulated by
+    cos(2 pi bf t) (band-pass) and optionally normalised to unit DC gain
+    (low-pass).  All channels share a max-length tap grid (masked per
+    channel), and each channel's group delay is removed as a phase ramp so
+    event times line up across channels.
     """
     dev = x.device
     t_len = x.shape[-1]
     c = len(boundary_f0s)
     bounds = torch.tensor(boundary_f0s, dtype=torch.float32, device=dev)
-    half = torch.round(rdiv(fs, bounds)).to(torch.int64)
+    half = torch.round(rdiv(periods_half * fs, bounds)).to(torch.int64)
     fir_len = 2 * half + 1                                    # [C]
-    max_len = int(2 * round(fs / min(boundary_f0s)) + 1)
+    max_len = int(2 * round(periods_half * fs / min(boundary_f0s)) + 1)
     pos = torch.arange(max_len, device=dev, dtype=torch.float32)[None, :]
     taps = nuttall(pos.expand(c, max_len), fir_len[:, None])
+    if modulate:
+        centered = pos - half[:, None].to(torch.float32)
+        taps = taps * torch.cos(2.0 * math.pi * bounds[:, None] * centered
+                                / fs)
     taps = torch.where(pos < fir_len[:, None], taps,
                        torch.zeros((), device=dev))
-    taps = taps / torch.sum(taps, dim=-1, keepdim=True)
+    if normalize_dc:
+        taps = taps / torch.sum(taps, dim=-1, keepdim=True)
     nfft = 1
     while nfft < t_len + max_len:
         nfft *= 2
@@ -80,3 +87,22 @@ def lowpass_bank_fft(x: torch.Tensor, fs: float,
     y = torch.fft.irfft(xs[:, None, :] * hs[None] * shift[None], n=nfft,
                         dim=-1)
     return y[..., :t_len]
+
+
+def bandpass_bank_fft(x: torch.Tensor, fs: float,
+                      boundary_f0s: tuple[float, ...]) -> torch.Tensor:
+    """Harvest's band-pass bank: x [B, T] -> [B, C, T].  Channel c is a
+    Nuttall window over 4 periods of its boundary frequency bf modulated
+    by cos(2 pi bf t), a band-pass centred at bf whose output's zero
+    crossings track the fundamental when f0 ~ bf."""
+    return _fir_bank_fft(x, fs, boundary_f0s, periods_half=2.0,
+                         modulate=True, normalize_dc=False)
+
+
+def lowpass_bank_fft(x: torch.Tensor, fs: float,
+                     boundary_f0s: tuple[float, ...]) -> torch.Tensor:
+    """DIO's low-pass bank: x [B, T] -> [B, C, T].  Channel c is a
+    Nuttall window over 2 periods of its boundary f0, normalised to unit
+    DC gain."""
+    return _fir_bank_fft(x, fs, boundary_f0s, periods_half=1.0,
+                         modulate=False, normalize_dc=True)

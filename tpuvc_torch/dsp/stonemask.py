@@ -15,9 +15,9 @@ import math
 
 import torch
 
-from tpuvc.dsp.constants import (DEFAULT_WORLD, STONEMASK_FFT_SIZE,
-                                 STONEMASK_NUM_HARMONICS,
-                                 STONEMASK_RELATIVE_LIMIT)
+from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, STONEMASK_FFT_SIZE,
+                                       STONEMASK_NUM_HARMONICS,
+                                       STONEMASK_RELATIVE_LIMIT)
 from tpuvc_torch.ops.framing import frame_signal
 from tpuvc_torch.ops.harmonics import fold_floor, harmonic_dft
 

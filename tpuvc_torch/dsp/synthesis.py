@@ -8,7 +8,8 @@ overlap-added.
 
 The JAX version draws its noise with ``jax.random.normal``, a stream
 torch cannot reproduce, so the noise here is an explicit [B, N*hop]
-argument (the converter draws it from a seeded ``torch.Generator``).
+argument; ``synthesis_noise`` draws it from one seeded
+``torch.Generator`` per utterance.
 The minimum-phase spectrum goes through ``torch.fft`` (cepstrum, causal
 fold, spectrum) where the JAX version folds the same linear map into two
 float32 matmuls.
@@ -18,9 +19,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from tpuvc.dsp.constants import DEFAULT_WORLD
+from tpuvc_torch.dsp.constants import DEFAULT_WORLD
 from tpuvc_torch.ops.arith import rdiv
 from tpuvc_torch.ops.dft import irdft, rdft
 from tpuvc_torch.ops.ola import overlap_add
@@ -120,3 +122,15 @@ def synthesize(f0: torch.Tensor, sp: torch.Tensor, ap: torch.Tensor,
     ehi = er * hi + ei * hr
     resp = irdft(ehr[:, 0] + ehr[:, 1], ehi[:, 0] + ehi[:, 1], fft_size)
     return overlap_add(resp, hop)[:, :n_samples]
+
+
+def synthesis_noise(seeds, n_samples: int,
+                    device: torch.device | str) -> torch.Tensor:
+    """Unit white noise [len(seeds), n_samples], one seeded
+    ``torch.Generator`` per utterance."""
+    rows = []
+    for s in np.asarray(seeds).reshape(-1):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(s))
+        rows.append(torch.randn(n_samples, generator=g, device=device))
+    return torch.stack(rows)

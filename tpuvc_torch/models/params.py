@@ -19,8 +19,9 @@ import math
 import numpy as np
 import torch
 
-from tpuvc.utils.config import Architecture
 from tpuvc_torch.models.vae import VAWGAN
+from tpuvc_torch.utils.config import Architecture
+from tpuvc_torch.utils.device import resolve
 
 
 def _t(a) -> torch.Tensor:
@@ -71,9 +72,11 @@ def from_flax(tree, arch: Architecture) -> dict[str, torch.Tensor]:
 
 
 def init_params(arch: Architecture, generator: torch.Generator,
-                device: torch.device | str = "cpu"
+                device: torch.device | str = "cuda"
                 ) -> dict[str, torch.Tensor]:
-    """Seeded full-width parameters for ``VAWGAN(arch)``."""
+    """Seeded full-width parameters for ``VAWGAN(arch)``, drawn from the
+    CPU ``generator`` and placed on ``device`` (the card by default)."""
+    device = resolve(device)
     shapes = VAWGAN(arch).state_dict()
     sd = {}
     for name, ref in shapes.items():
@@ -92,8 +95,10 @@ def init_params(arch: Architecture, generator: torch.Generator,
 
 
 def load_model(arch: Architecture, state: dict[str, torch.Tensor],
-               device: torch.device | str = "cpu") -> VAWGAN:
-    """A ``VAWGAN(arch)`` on ``device`` holding ``state``, in eval mode."""
+               device: torch.device | str = "cuda") -> VAWGAN:
+    """A ``VAWGAN(arch)`` on ``device`` (the card by default) holding
+    ``state``, in eval mode."""
+    device = resolve(device)
     model = VAWGAN(arch)
     model.load_state_dict(state)
     return model.to(device).eval()

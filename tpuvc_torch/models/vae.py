@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuvc.utils.config import Architecture, NetSpec
+from tpuvc_torch.utils.config import Architecture, NetSpec
 
 LN_EPS = 1e-6          # flax.linen.LayerNorm default
 

@@ -38,6 +38,8 @@ SIGNATURES = {
                            _I, _P),
     "tpuvc_windowed_frames": (_P, _P, _P, _P, _I, _I, _F, _P),
     "tpuvc_box_smooth": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "tpuvc_topk_sum": (_P, _P, _I, _I, _I, _P),
+    "tpuvc_refine_score": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()

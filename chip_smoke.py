@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py [--out DIR] [--profile]
 
-Three paths, each a ``WorldConfig`` of the converter:
+Four paths, each a ``WorldConfig`` and architecture of the converter:
 
-  default  DEFAULT_WORLD: DIO + StoneMask, CheapTrick, group-delay D4C
-           (the main path; batch 128 x 4 s in the rate phase)
+  default  DEFAULT_WORLD: DIO (with the fused block scans) + StoneMask,
+           CheapTrick, group-delay D4C (the main path; batch 128 x 4 s in
+           the rate phase)
   harvest  Harvest f0, CheapTrick, group-delay D4C (batch 32 x 4 s)
   nccf     DIO + StoneMask, CheapTrick, D4C "nccf" (batch 16 x 4 s)
+  fused    DEFAULT_WORLD and the fused-kernel architecture (conv_impl and
+           d2s_impl "pallas": fused conv + LayerNorm + LeakyReLU in the
+           encoder, fused depth-to-space + LayerNorm + LeakyReLU in the
+           decoder); batch 128 x 4 s
 
 Phases (each prints lines; any failure raises, so the script exits
 non-zero and prints no ``"ok"`` line):
@@ -16,30 +21,37 @@ non-zero and prints no ``"ok"`` line):
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the six CUDA kernels (tpuvc_torch/csrc) with nvcc
+  2. build   — compile the nine CUDA kernels (tpuvc_torch/csrc) with nvcc
                into build/tpuvc_torch/ and load them.
   3. kernels — one analysis per f0 method on the card at the rate phase's
-               shapes records every kernel wrapper's real inputs; each
-               kernel then runs on them against its plain PyTorch version
-               (error, median ms of both, the card's bound for the work,
-               and a PyTorch library call's time where one computes the
-               same function).
+               shapes and one fused model call on the
+               default batch's envelopes record every kernel wrapper's
+               real inputs; each kernel then runs on them against its
+               plain PyTorch version (error, median ms of both, the card's
+               bound for the work, and a PyTorch library call's or chain's
+               time where one computes the same function).
   4. serve   — per path, tpuvc_torch.convert.pipeline.Converter (full-width
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
-               kernel of the path must have launched.  For the default and
-               Harvest paths a 1 s input is also converted on the card and
-               on the CPU (plain versions, float32 model): waveform SNR
-               >= 30 dB.
+               kernel of the path must have launched.  For the default,
+               Harvest and fused paths a 1 s input is also converted on the
+               card and on the CPU (plain versions, float32 model):
+               waveform SNR >= 30 dB.  The fused path then drives the two
+               other entry points, counters zeroed and read around each:
+               a streamed request through
+               tpuvc_torch.convert.streaming.StreamingConverter, and
+               tpuvc_torch.cli.analyze.main over a synthetic corpus of 2
+               speakers x 2 utterances written under build/.
   5. rate    — per path, one batch through the same Converter: audio
                seconds per wall second (best of 3 calls), latency, per-
                stage times and peak device memory (informational); the
                Harvest path also runs once at the 512 s call budget for
                its peak memory.  ``--profile`` adds a torch.profiler pass
-               over one call of the default and Harvest paths (device
-               time by kernel, device-busy share); ``--out DIR`` keeps
-               the results as JSON there.
+               over one call of the default, Harvest and fused paths
+               (device time by kernel, device-busy share); ``--out DIR`` keeps
+               the results as JSON there.  The fused path's model stage is
+               printed beside the default path's.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -77,15 +89,29 @@ KERNELS = [
      "tpuvc/ops/pallas_topk.py:43", "default"),
     ("refine", "tpuvc_torch/csrc/harmonics.cu",
      "tpuvc/ops/pallas_harmonics.py:401", "harvest"),
+    ("scan", "tpuvc_torch/csrc/scan.cu",
+     "tpuvc/ops/pallas_events.py:208", "fused"),
+    ("conv", "tpuvc_torch/csrc/conv.cu",
+     "tpuvc/ops/pallas_conv.py:54", "fused"),
+    ("d2s", "tpuvc_torch/csrc/d2s.cu",
+     "tpuvc/ops/pallas_d2s.py:65", "fused"),
 ]
+# kernels whose record sums the sites of one model call (every layer)
+SUMMED = ("conv", "d2s")
 
-# path -> (WorldConfig fields, kernels it runs, rate batch)
+DIO_KERNELS = ("events", "scan", "harmonics", "window", "smooth", "topk")
+FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
+
+# path -> (WorldConfig fields, kernels it runs, rate batch, Architecture
+# fields)
 PATHS = {
-    "default": ({}, ("events", "harmonics", "window", "smooth", "topk"), 128),
+    "default": ({}, DIO_KERNELS, 128, {}),
     "harvest": ({"f0_method": "harvest"},
-                ("events", "refine", "window", "smooth", "topk"), 32),
+                ("events", "scan", "refine", "window", "smooth", "topk"), 32,
+                {}),
     "nccf": ({"ap_method": "nccf"},
-             ("events", "harmonics", "window", "smooth"), 16),
+             ("events", "scan", "harmonics", "window", "smooth"), 16, {}),
+    "fused": ({}, DIO_KERNELS + ("conv", "d2s"), 128, FUSED_ARCH),
 }
 
 
@@ -98,15 +124,28 @@ def path_cfg(path: str):
     return WorldConfig(**PATHS[path][0])
 
 
+def path_model(path: str, state, dev, compute_dtype: str = "bfloat16"):
+    """The full-width VAW-GAN of the path's architecture holding ``state``
+    on ``dev``."""
+    from tpuvc_torch.models.params import load_model
+    from tpuvc_torch.utils.config import Architecture
+    return load_model(Architecture(compute_dtype=compute_dtype,
+                                   **PATHS[path][3]), state, dev)
+
+
 def counters() -> dict:
     """kernel name -> (module, attribute) of its launch counter."""
-    from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
+                                 window)
     return {"events": (events, "launches"),
             "harmonics": (harmonics, "launches"),
             "window": (window, "launches"),
             "smooth": (smooth, "launches"),
             "topk": (topk, "launches"),
-            "refine": (harmonics, "launches_refine")}
+            "refine": (harmonics, "launches_refine"),
+            "scan": (events, "launches_scan"),
+            "conv": (conv, "launches"),
+            "d2s": (d2s, "launches")}
 
 
 def reset_counts() -> None:
@@ -252,9 +291,10 @@ def spy(module, name: str, calls: list):
         setattr(module, name, real)
 
 
-def capture_inputs(dev, dur_s: float, batches: dict) -> dict:
+def capture_inputs(dev, dur_s: float, batches: dict):
     """path -> kernel -> [(args, kwargs)] of each wrapper call made by one
-    analysis of ``batches[path]`` utterances on ``dev``."""
+    analysis of ``batches[path]`` utterances on ``dev``; and the default
+    batch's envelopes."""
     from tpuvc_torch.dsp import (cheaptrick, d4c, dio, harvest, spectral,
                                  stonemask, world)
     sites = [(dio, "event_block_pairs", "events"),
@@ -262,39 +302,72 @@ def capture_inputs(dev, dur_s: float, batches: dict) -> dict:
              (cheaptrick, "windowed_frames", "window"),
              (spectral, "box_smooth", "smooth"),
              (d4c, "topk_sum", "topk"),
-             (harvest, "refine_score", "refine")]
+             (harvest, "refine_score", "refine"),
+             (dio, "top2_block_scans", "scan")]
     rng = np.random.default_rng(2)
-    out = {}
+    out, sp = {}, None
     for path, batch in batches.items():
         calls = {k: [] for _, _, k in sites}
         xs, _ = batch_of(rng, batch, dur_s)
         with contextlib.ExitStack() as stack:
             for mod, attr, k in sites:
                 stack.enter_context(spy(mod, attr, calls[k]))
-            world.analyze_batch(np.stack(xs), path_cfg(path), device=dev)
+            feats = world.analyze_batch(np.stack(xs), path_cfg(path),
+                                        device=dev)
         out[path] = calls
-    return out
+        if path == "default":
+            sp = feats.sp
+    return out, sp
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+def capture_model_inputs(state, sp, dev) -> dict:
+    """kernel -> [(args, kwargs)] of the fused layers' wrapper calls in one
+    encode + decode of the fused model (bf16 compute) on the frames of
+    ``sp`` [B, N, 513], Tanhize-normalised by their own min/max."""
+    import torch
+    from tpuvc_torch.convert import pipeline
+    from tpuvc_torch.models import vae
+    model = path_model("fused", state, dev)
+    b, n, half = sp.shape
+    s = sp + pipeline.EPSILON
+    log = torch.log10(s / s.sum(-1, keepdim=True)).reshape(b * n, half)
+    u, _ = pipeline._normalize_sp(sp.reshape(b * n, half), log.amin(0),
+                                  log.amax(0))
+    del log, s
+    calls = {"conv": [], "d2s": []}
+    with torch.no_grad(), spy(vae, "conv_ln_lrelu", calls["conv"]), \
+            spy(vae, "d2s_ln_lrelu", calls["d2s"]):
+        z, _ = model.encode(u)
+        model.decode(z, torch.arange(b * n, device=dev) % len(SPEAKERS))
+    return calls
+
+
+def _bound(nbytes: float, ops: float) -> dict:
     """The least time the card takes to move nbytes and do ops float32
-    operations, in ms, and which of the two bounds it."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    operations, in ms, which of the two bounds it, and both times."""
+    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes_ms": tb, "ops_ms": to}
 
 
 # float32 operations per element, counted from each kernel's source
 # (a transcendental counts as one): events per cell of the bank (4 event
 # types: crossing test, fraction, time, sorted-pair inserts); the folded
 # harmonic pass per half-lane with and without the derivative window;
-# the window per lane; topk per value and round; smooth per tap.
+# the window per lane; topk per value and round; smooth per tap; the
+# block scans one top-2 combine (3 selections) per block pair; a
+# LayerNorm + LeakyReLU epilogue per value (bias, sum, centre, square-add,
+# scale, gamma, beta, select) besides the convolution's 2 K Cin per output.
 OPS_EVENTS_CELL = 57
 OPS_HARM_IF = 121
 OPS_HARM_NO_IF = 91
 OPS_WINDOW_LANE = 16
+OPS_SCAN_PAIR = 3
+OPS_LN_VALUE = 8
 
 
-def bound_of(name: str, args, out) -> tuple[float, str]:
+def bound_of(name: str, args, out) -> dict:
     from tpuvc_torch.ops.smooth import n_taps_half
     f4 = 4.0
     if name == "events":
@@ -328,6 +401,21 @@ def bound_of(name: str, args, out) -> tuple[float, str]:
         n2 = int((out[0] > 0).sum())
         return _bound(f4 * (n * w + 3 * f0.numel()),
                       (w // 2) * (OPS_HARM_IF * n1 + OPS_HARM_NO_IF * n2))
+    if name == "scan":
+        (pairs,) = args
+        return _bound(f4 * 2 * pairs.numel(),
+                      OPS_SCAN_PAIR * pairs.numel() / 2)
+    if name == "conv":
+        x, w, stride = args[0], args[1], args[5]
+        k, cin, cout = w.shape
+        n_out = x.shape[0] * -(-x.shape[1] // stride) * cout
+        return _bound(x.element_size() * x.numel()
+                      + f4 * (w.numel() + 3 * cout + n_out),
+                      (2 * k * cin + OPS_LN_VALUE) * n_out)
+    if name == "d2s":
+        x, c = args[0], args[1].shape[0]
+        e = x.element_size()
+        return _bound(e * (2 * x.numel() + 2 * c), OPS_LN_VALUE * x.numel())
     raise KeyError(name)
 
 
@@ -345,7 +433,7 @@ def compare(name: str, got, ref) -> tuple[float, str]:
     """Hold a kernel's outputs against its plain version's; returns the
     max abs error and the tolerance applied."""
     import torch
-    if name in ("events", "topk"):
+    if name in ("events", "topk", "scan"):
         # selections, and sums added in the same order: bit-equal
         if not torch.equal(got, ref):
             raise AssertionError(f"{name}: kernel is not bit-equal to its "
@@ -366,6 +454,15 @@ def compare(name: str, got, ref) -> tuple[float, str]:
     if name == "smooth":
         return (_close(name, got, ref, 1e-5, 1e-7 * ref.abs().max().item()),
                 "rtol 1e-5, atol 1e-7*max")
+    if name == "conv":
+        # float32 sums of up to K*Cin products in another order, scaled by
+        # the row's 1/std in the norm (TF32 off for the plain version)
+        return _close(name, got, ref, 1e-4, 1e-4), "rtol 1e-4, atol 1e-4"
+    if name == "d2s":
+        # float32 math agreeing to rounding, then one bfloat16 rounding:
+        # at most one bfloat16 step (2^-7 of the value) apart
+        return (_close(name, got.float(), ref.float(), 8e-3, 1e-5),
+                "rtol 8e-3, atol 1e-5 (one bfloat16 step)")
     if name == "refine":
         # the accept gate |refined - f0| <= 0.2 f0 is a threshold on a sum
         # taken in another order: a slot on its edge may flip; at most
@@ -389,17 +486,45 @@ def compare(name: str, got, ref) -> tuple[float, str]:
     raise KeyError(name)
 
 
-def phase_kernels(dev, dur_s: float = 4.0, batches: dict | None = None
-                  ) -> dict:
+def ladder_route(pairs):
+    """The block scans as the JAX package runs them by default: the
+    cummax/cummin ladders per event type."""
+    from tpuvc_torch.ops.events import top2_max_scan, top2_min_scan_rev
+    out = []
+    for t in range(4):
+        out += [*top2_max_scan(pairs[:, 4 * t], pairs[:, 4 * t + 1]),
+                *top2_min_scan_rev(pairs[:, 4 * t + 2], pairs[:, 4 * t + 3])]
+    return out
+
+
+def d2s_chain(x, gamma, beta, s, slope):
+    """Depth-to-space, then F.layer_norm and F.leaky_relu in x's dtype:
+    what the default decoder runs at a subpixel site."""
+    import torch.nn.functional as F
+    from tpuvc_torch.ops.conv import LN_EPS
+    n, length, cs = x.shape
+    h = x.reshape(n, length * s, cs // s)
+    return F.leaky_relu(F.layer_norm(h, h.shape[-1:], gamma.to(x.dtype),
+                                     beta.to(x.dtype), LN_EPS), slope)
+
+
+def phase_kernels(dev, state, dur_s: float = 4.0,
+                  batches: dict | None = None) -> dict:
     """Each kernel against its plain version on the inputs the analysis
-    gave its wrapper: kernel name -> list of sites (the first is the one
-    the JSON record reports)."""
+    and the fused model gave its wrapper: kernel name -> list of sites
+    (the first is the one the JSON record reports, or all of them summed
+    for the fused layers)."""
     import torch
-    from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+    import torch.nn.functional as F
+    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
+                                 window)
     batches = batches or {"default": PATHS["default"][2],
                           "harvest": PATHS["harvest"][2]}
-    calls = capture_inputs(dev, dur_s, batches)
+    calls, sp = capture_inputs(dev, dur_s, batches)
     d, h = calls["default"], calls["harvest"]
+    m = capture_model_inputs(state, sp, dev)
+    del sp
+    default = path_model("default", state, dev).encoder.stack
     fns = {"events": (events.event_block_pairs,
                       events.event_block_pairs_plain),
            "harmonics": (harmonics.harmonic_dft,
@@ -407,9 +532,32 @@ def phase_kernels(dev, dur_s: float = 4.0, batches: dict | None = None
            "window": (window.windowed_frames, window.windowed_frames_plain),
            "smooth": (smooth.box_smooth, smooth.box_smooth_plain),
            "topk": (topk.topk_sum, topk.topk_sum_plain),
-           "refine": (harmonics.refine_score, harmonics.refine_score_plain)}
-    library = {"topk": lambda ps, kk: torch.topk(ps, kk).values.sum(-1)}
-    sites = [  # kernel, label, captured call
+           "refine": (harmonics.refine_score, harmonics.refine_score_plain),
+           "scan": (events.top2_block_scans, events.top2_block_scans_plain),
+           "conv": (conv.conv_ln_lrelu, conv.conv_ln_lrelu_plain),
+           "d2s": (d2s.d2s_ln_lrelu, d2s.d2s_ln_lrelu_plain)}
+    def default_layer(i):
+        """Encoder layer i as the default architecture runs it (bf16
+        compute: cuDNN conv, LayerNorm, LeakyReLU)."""
+        c, nrm = default.convs[i], default.norms[i]
+        return lambda x, *_: F.leaky_relu(nrm(c(x.to(torch.bfloat16))),
+                                          default.slope)
+
+    # one PyTorch call, or a chain of them labelled so, computing the
+    # same function; for conv and d2s the default architecture's route
+    library = {"topk": lambda ps, kk: torch.topk(ps, kk).values.sum(-1),
+               "scan": ladder_route, "d2s": d2s_chain,
+               **{f"conv{i}": default_layer(i) for i in range(5)}}
+    library_label = {
+        "topk": "torch.topk(ps, kk).values.sum(-1)",
+        "scan": "ladder route: cummax/cummin per event type (the JAX "
+                "default)",
+        "conv": "chain cuDNN conv1d + LayerNorm + LeakyReLU in bfloat16 "
+                "(the default encoder's layer)",
+        "d2s": "chain view + F.layer_norm + F.leaky_relu in bfloat16 (the "
+               "default decoder's)"}
+
+    sites = [  # kernel, label, captured call[, library key]
         ("events", "DIO stride 20", d["events"][0]),
         ("events", "Harvest stride 8", h["events"][0]),
         ("harmonics", "StoneMask pass 1", d["harmonics"][0]),
@@ -419,32 +567,39 @@ def phase_kernels(dev, dur_s: float = 4.0, batches: dict | None = None
         ("smooth", "D4C f0/2 signed, 810 Hz cap", d["smooth"][2]),
         ("topk", "D4C band statistic", d["topk"][0]),
         ("refine", "Harvest refinement", h["refine"][0]),
+        ("scan", "DIO block scans", d["scan"][0]),
+        ("scan", "Harvest block scans", h["scan"][0]),
+        *[("conv", f"encoder layer {i + 1}", c, f"conv{i}") for i, c in
+          enumerate(m["conv"])],
+        *[("d2s", f"decoder site {i + 1}", c) for i, c in
+          enumerate(m["d2s"])],
     ]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     res: dict = {}
-    for name, label, (args, kwargs) in sites:
+    for name, label, (args, kwargs), *key in sites:
         kern, plain = fns[name]
         got = kern(*args, **kwargs)
         ref = plain(*args, **kwargs)
         sync()
         err, tol = compare(name, got, ref)
-        bound_ms, bound_by = bound_of(name, args, got)
-        lib = library.get(name)
+        lib = library.get(key[0] if key else name)
         r = dict(site=label, shape=[list(a.shape) for a in args
                                     if hasattr(a, "shape")],
                  max_abs_err=err, tol=tol,
                  ms=cuda_ms(lambda: kern(*args, **kwargs)),
                  plain_ms=cuda_ms(lambda: plain(*args, **kwargs)),
-                 bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=cuda_ms(lambda: lib(*args)) if lib else None)
+                 library_ms=cuda_ms(lambda: lib(*args)) if lib else None,
+                 library=library_label.get(name),
+                 **bound_of(name, args, got))
         del got, ref
         res.setdefault(name, []).append(r)
         say(f"[3 kernels] {name} ({label}): shapes {r['shape']} max_abs_err "
             f"{err:.3e} ({tol}); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), library "
-            + (f"{r['library_ms']:.4f} ms" if lib else "none"))
-    del calls, d, h
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library "
+            + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
+               else "none"))
+    del calls, d, h, m, default
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res
@@ -452,29 +607,27 @@ def phase_kernels(dev, dur_s: float = 4.0, batches: dict | None = None
 
 # --- phase 4: serve ------------------------------------------------------
 
-def build_model(dev):
-    """The full-width VAW-GAN in bf16 compute, seeded random weights: the
-    float32 parameters (on the CPU) and the model on ``dev``."""
+def build_state():
+    """Seeded random float32 parameters (on the CPU) of the full-width
+    VAW-GAN; both architectures take the same state dict."""
     import torch
-    from tpuvc_torch.models.params import init_params, load_model
+    from tpuvc_torch.models.params import init_params
     from tpuvc_torch.utils.config import Architecture
-    arch = Architecture(compute_dtype="bfloat16")
-    state = init_params(arch, torch.Generator().manual_seed(0), device="cpu")
-    return state, load_model(arch, state, dev)
+    return init_params(Architecture(), torch.Generator().manual_seed(0),
+                       device="cpu")
 
 
-def phase_serve(path: str, dev, state, model,
+def phase_serve(path: str, dev, state,
                 durs=(1.0, 1.7, 2.3, 3.1, 3.6, 4.0)):
-    """Requests of ``durs`` seconds through the path's Converter with the
-    launch counters zeroed just before and read just after; then card vs
-    CPU."""
+    """Requests of ``durs`` seconds through the path's Converter (its
+    architecture in bf16 compute) with the launch counters zeroed just
+    before and read just after; then card vs CPU."""
     import torch
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
                                               synthesis_noise)
-    from tpuvc_torch.models.params import load_model
-    from tpuvc_torch.utils.config import Architecture
     cfg = path_cfg(path)
+    model = path_model(path, state, dev)
     rng = np.random.default_rng(0)
     src = [0, 1, 2, 3, 4, 5][:len(durs)]
     trg = [5, 3, 7, 0, 9, 2][:len(durs)]
@@ -509,10 +662,9 @@ def phase_serve(path: str, dev, state, model,
         + ", ".join(f"{10 * math.log10(float(np.mean(y ** 2))):.1f}"
                     for y in ys) + " dBFS")
     snr = None
-    if path in ("default", "harvest"):
+    if path != "nccf":
         # the card against the CPU on a small input: same params in
         # float32, same noise; the CPU runs every kernel's plain version
-        arch32 = Architecture()
         x1 = torch.tensor(xs[1][:FS])[None]
         n_samples = (x1.shape[1] // cfg.hop + 1) * cfg.hop
         noise = synthesis_noise([11], n_samples, "cpu")
@@ -520,7 +672,8 @@ def phase_serve(path: str, dev, state, model,
         outs = []
         for d in (dev.type, "cpu"):
             t = lambda v: torch.tensor(v, device=d)  # noqa: E731
-            fn = make_batch_convert_fn(load_model(arch32, state, d), cfg)
+            fn = make_batch_convert_fn(
+                path_model(path, state, d, "float32"), cfg)
             outs.append(fn(x1.to(d), t([3]), t(a.xmin), t(a.xmax),
                            t(a.f0_mu[[1]]), t(a.f0_sigma[[1]]),
                            t(a.f0_mu[[3]]), t(a.f0_sigma[[3]]),
@@ -536,6 +689,82 @@ def phase_serve(path: str, dev, state, model,
             raise AssertionError(f"{path}: card and CPU disagree: SNR "
                                  f"{snr:.1f} dB")
     return conv, launches, snr
+
+
+def phase_entry_points(conv, dev) -> dict:
+    """The fused path's other entry points, launch counters zeroed just
+    before and read just after each: one 3 s request streamed in 0.25 s
+    blocks through StreamingConverter, and the analysis CLI over a
+    synthetic corpus of 2 speakers x 2 utterances of 1.5 s."""
+    import tempfile
+    import torch
+    from tpuvc_torch.cli import analyze
+    from tpuvc_torch.convert.streaming import StreamingConverter
+    from tpuvc_torch.io import corpus, records
+    from tpuvc_torch.io.wav import write_wav
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(3)
+    x = utterance(rng, 2, 3.0)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = StreamingConverter(conv, SPEAKERS[2], SPEAKERS[7], chunk_s=1.0,
+                            cfg=conv.cfg)
+    y = np.concatenate([st.push(x[i:i + FS // 4])
+                        for i in range(0, len(x), FS // 4)] + [st.flush()])
+    sync()
+    wall = time.perf_counter() - t0
+    stream_launches = read_counts()
+    missing = [k for k in PATHS["fused"][1] if stream_launches[k] == 0]
+    if abs(len(y) - len(x)) > st.halo + conv.cfg.hop or not (
+            np.all(np.isfinite(y)) and np.std(y) > 1e-4):
+        raise AssertionError(f"streaming: {len(y)} samples for {len(x)}, "
+                             "or non-finite or silent")
+    if missing and cuda:
+        raise AssertionError(f"streaming did not launch: {missing}")
+    say(f"[4 serve] fused: StreamingConverter, {len(x) / FS:g} s in "
+        f"{FS // 4}-sample blocks -> {len(y)} samples in {wall:.3f} s "
+        f"(chunk {st.chunk}, halo {st.halo}); kernel launches "
+        f"{stream_launches}")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:
+        for spk in range(2):
+            for u in range(2):
+                write_wav(os.path.join(root, "wav", corpus.TRAIN_SPLIT,
+                                       SPEAKERS[spk], f"u{u}.wav"),
+                          utterance(rng, spk, 1.5), FS)
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        analyze.main(["--corpus", root, "--bucket-s", "1.0", "--quiet",
+                      "--device", dev.type])
+        sync()
+        wall_cli = time.perf_counter() - t0
+        cli_launches = read_counts()
+        bins = corpus.list_bins(root, corpus.TRAIN_SPLIT)
+        feats = [records.read_bin(b) for b in bins]
+        etc = os.path.join(root, "etc")
+        stats = (*corpus.load_norm_stats(etc), *corpus.load_f0_stats(etc))
+    n_frames = 1.5 * FS // conv.cfg.hop + 1
+    if len(bins) != 4 or any(
+            f.sp.shape != (n_frames, 513) or not all(
+                np.all(np.isfinite(getattr(f, k))) for k in ("sp", "ap",
+                                                             "f0", "en"))
+            for f in feats) or not all(np.all(np.isfinite(v))
+                                       for v in stats):
+        raise AssertionError("cli.analyze: records or etc/ stats missing "
+                             "or not finite")
+    missing = [k for k in DIO_KERNELS if cli_launches[k] == 0]
+    if missing and cuda:
+        raise AssertionError(f"cli.analyze did not launch: {missing}")
+    say(f"[4 serve] fused: python -m tpuvc_torch.cli.analyze over 2 speakers"
+        f" x 2 utterances of 1.5 s in {wall_cli:.3f} s: {len(bins)} records "
+        f"of {n_frames:g} frames, etc/ stats finite (f0 means "
+        f"{np.round(stats[2], 4).tolist()}); kernel launches {cli_launches}")
+    return {"stream_s": wall, "stream_launches": stream_launches,
+            "analyze_s": wall_cli, "analyze_launches": cli_launches}
 
 
 # --- phase 5: rate -------------------------------------------------------
@@ -688,13 +917,26 @@ def kernels_record(kern: dict, launches: dict) -> dict:
     """The JSON record: one entry per kernel, at its first site."""
     out = []
     for name, src, rep, path in KERNELS:
-        first = kern[name][0]
+        sites = kern[name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": launches[path][name],
                  "launches_path": path}
-        entry.update({k: first[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+        if name in SUMMED:
+            # every layer of one model call: times and bounds summed
+            tb = sum(r["bytes_ms"] for r in sites)
+            to = sum(r["ops_ms"] for r in sites)
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in sites),
+                ms=sum(r["ms"] for r in sites),
+                plain_ms=sum(r["plain_ms"] for r in sites),
+                bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                library_ms=sum(r["library_ms"] for r in sites),
+                site=f"all {len(sites)} sites of one model call")
+        else:
+            entry.update({k: sites[0][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "site")})
         out.append(entry)
     return {"kernels": out}
 
@@ -706,7 +948,7 @@ def main() -> int:
                     "profile tables); nothing is written without it")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over one call of the "
-                    "default and Harvest paths (needs --out)")
+                    "default, Harvest and fused paths (needs --out)")
     args = ap.parse_args()
     if args.profile and not args.out:
         ap.error("--profile needs --out")
@@ -714,12 +956,14 @@ def main() -> int:
     import torch
     dev = torch.device("cuda")
     phase_build()
-    kern = phase_kernels(dev)
-    state, model = build_model(dev)
-    launches, snrs, rates = {}, {}, {}
+    state = build_state()
+    kern = phase_kernels(dev, state)
+    torch.cuda.empty_cache()
+    launches, snrs, rates, entry = {}, {}, {}, None
     for path in PATHS:
-        conv, launches[path], snrs[path] = phase_serve(path, dev, state,
-                                                       model)
+        conv, launches[path], snrs[path] = phase_serve(path, dev, state)
+        if path == "fused":
+            entry = phase_entry_points(conv, dev)
         rates[path] = phase_rate(
             path, conv, smi, dev, PATHS[path][2],
             profile_dir=(args.out if args.profile and path != "nccf"
@@ -727,12 +971,16 @@ def main() -> int:
             budget_batch=128 if path == "harvest" else None)
         del conv
         torch.cuda.empty_cache()
+    model_s = {p: rates[p]["stages_s"]["model"] for p in ("default", "fused")}
+    say(f"[5 rate] model stage (encode + decode) at batch "
+        f"{PATHS['fused'][2]} x 4 s: default {model_s['default']:.4f} s, "
+        f"fused {model_s['fused']:.4f} s")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
-                       "card_vs_cpu_snr_db": snrs, "rate": rates}, f,
-                      indent=1)
+                       "card_vs_cpu_snr_db": snrs, "entry_points": entry,
+                       "rate": rates}, f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))
     say(json.dumps({"ok": True, "device": {

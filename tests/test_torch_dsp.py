@@ -17,7 +17,7 @@ from tests.conftest import make_harmonic, make_speech_like
 from tpuvc_torch.dsp import cheaptrick, d4c, dio, filters, harvest, spectral
 from tpuvc_torch.dsp import stonemask, synthesis, world
 from tpuvc_torch.dsp.constants import WorldConfig
-from tpuvc_torch.ops import dft, framing, ola
+from tpuvc_torch.ops import dft, events, framing, ola
 
 KINDS = ["sweep", "transitions", "breathy"]
 
@@ -199,6 +199,49 @@ def test_dio_matches_jax(kind, jax_chain):
     both = vr & vg
     assert both.sum() > 0.5 * len(ref)
     np.testing.assert_allclose(got[both], ref[both], rtol=1e-3)
+
+
+def _speechy_bank(seed, t=3205, rows=4):
+    """tests/test_events.py's filtered-channel stand-in at 4 kHz."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(t) / 4000.0
+    return np.stack([(np.sin(2 * np.pi * 170.0 * n)
+                      + 0.4 * np.sin(2 * np.pi * 340.0 * n + 0.7)
+                      + 0.05 * rng.standard_normal(t)).astype(np.float32)
+                     for _ in range(rows)])
+
+
+@pytest.mark.parametrize("stride", [8, 20])
+def test_bank_tracks_fused_scan_matches_jax(stride, monkeypatch):
+    """dio._bank_tracks (the fused block scans, K7's route, taken once per
+    bank) == the JAX package's with TPUVC_EVENTS=pallas and
+    TPUVC_SCAN=pallas (its event and scan kernels in interpret mode), bit
+    for bit (np.array_equal): the events and scans are selections and the
+    frame reads the same IEEE operations in the same order.  The JAX
+    package's default route (its cummax ladders) gives the same bits."""
+    from tpuvc.dsp import dio as jdio
+    t = 3205
+    bank = _speechy_bank(stride + t)
+    n_frames = t // stride + 1
+    calls = []
+
+    def scans(pairs):
+        calls.append(tuple(pairs.shape))
+        return events.top2_block_scans(pairs)
+
+    monkeypatch.setattr(dio, "top2_block_scans", scans)
+    got = dio._bank_tracks(_t(bank), 4000.0, n_frames, stride).numpy()
+    assert len(calls) == 1 and calls[0][:2] == (4, 16)
+    monkeypatch.setenv("TPUVC_EVENTS", "pallas")
+    monkeypatch.setenv("TPUVC_SCAN", "pallas")
+    ref = np.asarray(jdio._bank_tracks(jnp.asarray(bank), 4000.0, n_frames,
+                                       stride))
+    assert got.shape == ref.shape == (4, 4, n_frames)
+    assert np.array_equal(got, ref)
+    monkeypatch.setenv("TPUVC_SCAN", "xla")
+    ladders = np.asarray(jdio._bank_tracks(jnp.asarray(bank), 4000.0,
+                                           n_frames, stride))
+    assert np.array_equal(ladders, got)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -446,6 +489,8 @@ def test_constants_match_jax():
         assert pc.d4c_fft_size(fs, floor) == jc.d4c_fft_size(fs, floor)
         assert pc.d4c_num_bands(fs) == jc.d4c_num_bands(fs)
     assert pc.max_refined_f0() == jc.max_refined_f0()
+    for fs in (8000, 16000, 22050, 44100):
+        assert pc.cheaptrick_fft_size(fs) == jc.cheaptrick_fft_size(fs)
     assert (dataclasses.asdict(pc.DEFAULT_WORLD)
             == dataclasses.asdict(jc.DEFAULT_WORLD))
     cfg = dict(f0_method="harvest", ap_method="nccf", fs=22050)

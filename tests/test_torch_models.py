@@ -1,6 +1,9 @@
 """The port's VAW-GAN encoder/decoder (tpuvc_torch/models) against the
 Flax model, from the same parameters (``from_flax``), on the CPU in
-float32 at the repo's full width (``Architecture()``)."""
+float32 at the repo's full width (``Architecture()``), for the default
+architecture and the fused-kernel one (``conv_impl="pallas"``,
+``d2s_impl="pallas"``, whose Flax side runs its Pallas kernels in
+interpret mode)."""
 
 import numpy as np
 import pytest
@@ -15,10 +18,12 @@ from tpuvc_torch.models.vae import VAWGAN
 from tpuvc_torch.utils import config as port_config
 
 
-@pytest.fixture(scope="module")
-def flax_model():
+FUSED = dict(conv_impl="pallas", d2s_impl="pallas")
+
+
+def _flax_and_port(**fields):
     from tpuvc.models.vae import init_params, make_model
-    arch = Architecture()
+    arch = Architecture(**fields)
     model = make_model(arch)
     tree = init_params(model, arch, jax.random.PRNGKey(0))
     # LayerNorm scale/bias of ones/zeros would hide a swapped pair:
@@ -27,14 +32,28 @@ def flax_model():
     tree = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(
             np.float32), tree)
-    parch = port_config.Architecture()
+    parch = port_config.Architecture(**fields)
     port = port_params.load_model(parch, port_params.from_flax(tree, parch),
                                   device="cpu")
     return parch, model, tree, port
 
 
-def test_from_flax_covers_the_state_dict(flax_model):
-    arch, _, tree, port = flax_model
+@pytest.fixture(scope="module")
+def flax_model():
+    return _flax_and_port()
+
+
+@pytest.fixture(scope="module")
+def flax_fused():
+    return _flax_and_port(**FUSED)
+
+
+@pytest.mark.parametrize("which", ["flax_model", "flax_fused"])
+def test_from_flax_covers_the_state_dict(which, request):
+    """Every parameter of the Flax encoder and decoder lands in the state
+    dict, shapes included; the fused architecture's tree (other names)
+    maps onto the same keys."""
+    arch, _, tree, port = request.getfixturevalue(which)
     sd = port_params.from_flax(tree, arch)
     ref = VAWGAN(arch).state_dict()
     assert set(sd) == set(ref)
@@ -116,6 +135,12 @@ def test_seeded_init_params():
     assert out.shape == (2, 513) and torch.isfinite(out).all()
 
 
+def test_unknown_kernel_switch_is_refused():
+    """conv_impl and d2s_impl take "xla" or "pallas", nothing else."""
+    with pytest.raises(ValueError, match="conv_impl"):
+        VAWGAN(port_config.Architecture(conv_impl="triton"))
+
+
 def test_architecture_copy_matches_jax(tmp_path):
     """The port's Architecture has the JAX record's fields and defaults,
     and an architecture.json written by either loads the same in both,
@@ -151,3 +176,69 @@ def test_entry_points_default_to_the_card():
                                  device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_params.load_model(arch, sd)
+
+
+def test_fused_encode_decode_matches_flax(flax_fused):
+    """The fused-kernel architecture in float32 (K8 per encoder layer, K9
+    after the decoder's three stride-3 layers; the Flax side runs the
+    Pallas kernels in interpret mode): rtol 1e-4 / atol 1e-4, as the
+    default architecture."""
+    _, model, tree, port = flax_fused
+    rng = np.random.default_rng(4)
+    u = rng.uniform(-1, 1, (6, 513)).astype(np.float32)
+    y = np.array([0, 3, 9, 1, 1, 5], np.int32)
+    mu, lv = model.apply(tree, jnp.asarray(u), method=type(model).encode)
+    ref = model.apply(tree, mu, jnp.asarray(y), method=type(model).decode)
+    with torch.no_grad():
+        pmu, plv = port.encode(torch.from_numpy(u))
+        got = port.decode(torch.from_numpy(np.array(mu)),
+                          torch.from_numpy(y).long())
+    for g, r in ((pmu, mu), (plv, lv), (got, ref)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_fused_routes_match_default_routes(flax_fused):
+    """The kernel switches pick routes, not parameters: one state dict
+    loads into both architectures, and in float32 they agree to rounding
+    (rtol 1e-5 / atol 1e-5: the same sums, norms taken in other orders)."""
+    arch, _, _, port = flax_fused
+    plain = port_params.load_model(port_config.Architecture(),
+                                   port.state_dict(), device="cpu")
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.uniform(-1, 1, (5, 513)).astype(np.float32))
+    y = torch.tensor([1, 2, 3, 4, 0])
+    with torch.no_grad():
+        for a, b in zip((*port.encode(u), port.decode(u[:, :128], y)),
+                        (*plain.encode(u), plain.decode(u[:, :128], y))):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_fused_bf16_matches_flax_bf16(flax_fused):
+    """compute_dtype="bfloat16" in both packages, fused architecture: the
+    encoder's input is rounded to bfloat16, the fused layers compute in
+    float32, the dense heads and the decoder's convs in bfloat16 (K9
+    keeps x's type).  bfloat16 keeps ~3 significant digits and the two
+    frameworks round at other points, so z within 0.05 of its largest
+    magnitude and the tanh-bounded frames within 0.05."""
+    from tpuvc.models.vae import make_model
+    _, _, tree, _ = flax_fused
+    jarch = Architecture(compute_dtype="bfloat16", **FUSED)
+    jmodel = make_model(jarch)
+    parch = port_config.Architecture(compute_dtype="bfloat16", **FUSED)
+    port16 = port_params.load_model(parch, port_params.from_flax(tree, parch),
+                                    device="cpu")
+    rng = np.random.default_rng(6)
+    u = rng.uniform(-1, 1, (4, 513)).astype(np.float32)
+    y = np.array([0, 1, 2, 3], np.int32)
+    mu, _ = jmodel.apply(tree, jnp.asarray(u), method=type(jmodel).encode)
+    ref = jmodel.apply(tree, mu, jnp.asarray(y), method=type(jmodel).decode)
+    with torch.no_grad():
+        pmu, _ = port16.encode(torch.from_numpy(u))
+        got = port16.decode(torch.from_numpy(np.array(mu)),
+                            torch.from_numpy(y).long())
+    assert pmu.dtype == got.dtype == torch.float32
+    mu = np.asarray(mu)
+    assert np.abs(pmu.numpy() - mu).max() < 0.05 * np.abs(mu).max()
+    assert np.abs(got.numpy() - np.asarray(ref)).max() < 0.05

@@ -1,4 +1,4 @@
-"""The port's six kernels (tpuvc_torch/ops) against the JAX package.
+"""The port's nine kernels (tpuvc_torch/ops) against the JAX package.
 
 On the CPU every wrapper takes its plain PyTorch version, so these tests
 hold the plain versions against the Pallas kernels run in interpret mode
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpuvc_torch.ops import events, harmonics, smooth, topk, window
+from tpuvc_torch.ops import conv, d2s, events, harmonics, smooth, topk, window
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -277,8 +277,105 @@ def test_refine_score_plain_matches_pallas():
     assert harmonics.launches_refine == 0
 
 
+def _adversarial_pairs(nb, seed=5, c=3):
+    """Sorted block pairs as event_block_pairs makes them, with the
+    adversarial patterns of tests/test_events.py: empty blocks (fills),
+    single-event blocks, duplicate times (multiplicity)."""
+    rng = np.random.default_rng(seed)
+    times = np.sort(rng.uniform(0.0, 1e4, (c, 4, 2, nb)).astype(np.float32),
+                    axis=2)
+    empty = rng.random((c, 4, nb)) < 0.35
+    half = rng.random((c, 4, nb)) < 0.25
+    dup = rng.random((c, 4, nb)) < 0.2
+    pairs = np.empty((c, 16, nb), np.float32)
+    for ti in range(4):
+        hi, lo = times[:, ti, 1], times[:, ti, 0]
+        hi2 = np.where(dup[:, ti], hi, lo)
+        s1 = np.where(empty[:, ti], np.inf, hi2)
+        s2 = np.where(empty[:, ti] | half[:, ti], np.inf, hi)
+        pairs[:, 4 * ti + 0] = np.where(empty[:, ti], -np.inf, hi)
+        pairs[:, 4 * ti + 1] = np.where(empty[:, ti] | half[:, ti], -np.inf,
+                                        hi2)
+        pairs[:, 4 * ti + 2] = np.minimum(s1, s2)
+        pairs[:, 4 * ti + 3] = np.maximum(s1, s2)
+    return pairs
+
+
+@pytest.mark.parametrize("nb", [256, 161])
+def test_scan_plain_matches_pallas(nb):
+    """K7 plain == top2_block_scans (interpret), bit for bit
+    (np.array_equal): every output is a selection among the inputs.  The
+    Pallas kernel needs nb to be a multiple of its lane tile, so at
+    nb = 161 its input is padded to 256 with fill blocks (-inf in the max
+    rows, +inf in the min rows), which are inert in both directions."""
+    import jax.numpy as jnp
+    from tpuvc.ops.pallas_events import top2_block_scans as jax_scans
+    pairs = _adversarial_pairs(nb)
+    padded = np.empty((3, 16, 256), np.float32)
+    padded[:, :, :nb] = pairs
+    for row in range(16):
+        padded[:, row, nb:] = -np.inf if row % 4 < 2 else np.inf
+    ref = np.asarray(jax_scans(jnp.asarray(padded), interpret=True))
+    got = events.top2_block_scans(torch.from_numpy(pairs)).numpy()
+    assert got.shape == pairs.shape
+    assert np.array_equal(got, ref[..., :nb])
+    assert events.launches_scan == 0
+
+
+@pytest.mark.parametrize("stride,l,cin,cout,k", [
+    (3, 57, 16, 32, 7), (1, 19, 8, 16, 7), (3, 513, 1, 8, 7)])
+def test_conv_plain_matches_pallas(stride, l, cin, cout, k):
+    """K8 plain == conv_ln_lrelu (interpret) at the shapes of
+    tests/test_ops.py's kernel test, rtol 2e-4 / atol 2e-5 as there: the
+    same float32 products summed in another order, then normalised."""
+    import jax.numpy as jnp
+    from tpuvc.ops.pallas_conv import conv_ln_lrelu
+    rng = np.random.default_rng(stride + l + cin)
+    x = rng.standard_normal((5, l, cin)).astype(np.float32)
+    w = (0.2 * rng.standard_normal((k, cin, cout))).astype(np.float32)
+    b, bt = (0.1 * rng.standard_normal((2, cout))).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(cout)).astype(np.float32)
+    ref = np.asarray(conv_ln_lrelu(*(jnp.asarray(a) for a in (x, w, b, g,
+                                                               bt)),
+                                   stride, 0.2, interpret=True))
+    got = conv.conv_ln_lrelu(*(torch.from_numpy(a) for a in (x, w, b, g, bt)),
+                             stride, 0.2).numpy()
+    assert got.shape == ref.shape == (5, -(-l // stride), cout)
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
+    assert conv.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz,l,c,s", [(4, 57, 256, 3), (2, 19, 64, 3),
+                                       (3, 171, 32, 3)])
+def test_d2s_plain_matches_pallas(bsz, l, c, s, dtype):
+    """K9 plain == d2s_ln_lrelu (interpret) at the shapes of
+    tests/test_ops.py's kernel test.  float32: rtol 2e-4 / atol 2e-5 as
+    there.  bfloat16 (gamma and beta rounded to it first in both): the
+    float32 math agrees to rounding, which can move the final bfloat16
+    rounding by one step, so rtol 8e-3 (one step is at most 2^-7 of the
+    value) / atol 1e-5."""
+    import jax.numpy as jnp
+    from tpuvc.ops.pallas_d2s import d2s_ln_lrelu
+    rng = np.random.default_rng(bsz + l + c)
+    x = rng.standard_normal((bsz, l, c * s)).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    ref = np.asarray(d2s_ln_lrelu(jx, jnp.asarray(g), jnp.asarray(b), s, 0.2,
+                                  interpret=True).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = d2s.d2s_ln_lrelu(tx, torch.from_numpy(g), torch.from_numpy(b), s,
+                           0.2)
+    assert got.dtype == tx.dtype and got.shape == (bsz, l * s, c)
+    tol = (2e-4, 2e-5) if dtype == "float32" else (8e-3, 1e-5)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol[0],
+                               atol=tol[1])
+    assert d2s.launches == 0
+
+
 @pytest.mark.parametrize("name", ["events", "harmonics", "window", "smooth",
-                                  "topk", "refine"])
+                                  "topk", "refine", "scan", "conv", "d2s"])
 def test_wrappers_refuse_wrong_inputs(name):
     """Every wrapper checks dtype and shape before dispatching."""
     x64 = torch.zeros((4, 1024), dtype=torch.float64)
@@ -294,6 +391,14 @@ def test_wrappers_refuse_wrong_inputs(name):
         elif name == "refine":
             harmonics.refine_score(x64, torch.ones((4, 10)), 16000, 63.9,
                                    0.2)
+        elif name == "scan":
+            events.top2_block_scans(torch.zeros((4, 8, 10)))
+        elif name == "conv":
+            conv.conv_ln_lrelu(torch.zeros((2, 9, 3)), torch.zeros((7, 4, 8)),
+                               *torch.zeros((3, 8)), 3, 0.2)
+        elif name == "d2s":
+            d2s.d2s_ln_lrelu(x64.reshape(4, 8, 128), torch.ones(32),
+                             torch.zeros(32), 4, 0.2)
         else:
             smooth.box_smooth(torch.zeros((4, 500)), torch.ones(4), 16000,
                               1024, 810.0)
@@ -398,3 +503,63 @@ def test_refine_kernel_matches_plain(cuda):
     assert np.array_equal(r_got > 0, ref[0].numpy() > 0)
     np.testing.assert_allclose(r_got, ref[0].numpy(), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(s_got, ref[1].numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_bitexact(cuda):
+    """Bit-equal to the ladders: selections only.  Several nb, one of
+    them past four tiles of the warp's walk, and the adversarial pairs."""
+    for nb, seed in ((256, 5), (161, 6), (4000, 7), (1, 8)):
+        pairs = torch.from_numpy(_adversarial_pairs(nb, seed, c=37))
+        ref = events.top2_block_scans_plain(pairs)
+        n0 = events.launches_scan
+        got = events.top2_block_scans(pairs.to(cuda)).cpu()
+        assert events.launches_scan == n0 + 1
+        assert torch.equal(got, ref), nb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride,l,cin,cout", [
+    (3, 513, 1, 16), (3, 171, 16, 32), (3, 57, 32, 64), (3, 19, 64, 128),
+    (3, 7, 128, 256), (1, 19, 8, 16)])
+def test_conv_kernel_matches_plain(cuda, stride, l, cin, cout):
+    """The encoder's five layer shapes (and a stride-1 one) against the
+    plain version with TF32 off: float32 sums of up to K*Cin = 896
+    products in another order, normalised by the row's deviation;
+    rtol 1e-4 / atol 1e-4."""
+    rng = np.random.default_rng(cout)
+    x = torch.from_numpy(rng.uniform(-1, 1, (301, l, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((7, cin, cout))
+                          / np.sqrt(7 * cin)).astype(np.float32))
+    b, g, bt = (torch.from_numpy((0.1 * rng.standard_normal(cout) + o)
+                                 .astype(np.float32)) for o in (0, 1, 0))
+    ref = conv.conv_ln_lrelu_plain(x, w, b, g, bt, stride, 0.2)
+    n0 = conv.launches
+    got = conv.conv_ln_lrelu(*(t.to(cuda) for t in (x, w, b, g, bt)), stride,
+                             0.2).cpu()
+    assert conv.launches == n0 + 1
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,c", [(19, 128), (57, 64), (171, 32), (5, 32)])
+def test_d2s_kernel_matches_plain(cuda, l, c, dtype):
+    """The decoder's three sites (and a short row count) against the
+    plain version: float32 rtol 1e-5 / atol 1e-5 (sums in another order);
+    bfloat16 one rounding step, rtol 8e-3 / atol 1e-5."""
+    rng = np.random.default_rng(c)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((67, l, 3 * c)).astype(
+        np.float32)).to(dt)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(
+        np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+    ref = d2s.d2s_ln_lrelu_plain(x, g, b, 3, 0.2)
+    n0 = d2s.launches
+    got = d2s.d2s_ln_lrelu(x.to(cuda), g.to(cuda), b.to(cuda), 3, 0.2).cpu()
+    assert d2s.launches == n0 + 1 and got.dtype == dt
+    tol = (1e-5, 1e-5) if dtype == "float32" else (8e-3, 1e-5)
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                               rtol=tol[0], atol=tol[1])

@@ -36,11 +36,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _slice(cfg):
-    """Batch 2 x 0.5 s through both converters under ``cfg`` from the same
-    params, statistics and noise.  JAX: one jit holding
-    make_batch_convert_fn and the per-utterance analysis/decode
-    intermediates (one compile)."""
+FUSED = dict(conv_impl="pallas", d2s_impl="pallas")
+
+
+def _slice(cfg, arch_fields=None):
+    """Batch 2 x 0.5 s through both converters under ``cfg`` and the
+    architecture ``Architecture(**arch_fields)`` from the same params,
+    statistics and noise.  JAX: one jit holding make_batch_convert_fn and
+    the per-utterance analysis/decode intermediates (one compile)."""
+    arch_fields = arch_fields or {}
     from tpuvc.convert.pipeline import (_denormalize_sp, _normalize_sp,
                                         make_batch_convert_fn)
     from tpuvc.dsp.cheaptrick import cheaptrick
@@ -55,7 +59,7 @@ def _slice(cfg):
     from tpuvc_torch.ops import ulaw as port_ulaw
 
     jcfg = JaxConfig(ap_method=cfg.ap_method, f0_method=cfg.f0_method)
-    arch = Architecture()
+    arch = Architecture(**arch_fields)
     model = make_model(arch)
     tree = init_params(model, arch, jax.random.PRNGKey(0))
     xs = np.stack([make_speech_like(k, dur_s=0.5)[0]
@@ -94,7 +98,7 @@ def _slice(cfg):
                                          mu_t, sd_t, SEEDS)))]
 
     t = lambda a: torch.tensor(a)  # noqa: E731
-    parch = port_config.Architecture()
+    parch = port_config.Architecture(**arch_fields)
     pmodel = port_params.load_model(parch, port_params.from_flax(
         jax.tree_util.tree_map(np.asarray, tree), parch), device="cpu")
     wav = port.make_batch_convert_fn(pmodel, cfg)(
@@ -122,6 +126,19 @@ def slice_run():
 def default_run():
     """The DEFAULT_WORLD slice: DIO + StoneMask, group-delay D4C."""
     return _slice(DEFAULT_WORLD)
+
+
+@pytest.fixture(scope="module")
+def fused_run():
+    """The fused-kernel configuration: DEFAULT_WORLD (the port always takes
+    K7's route; the JAX side takes its scan kernel, run in interpret mode,
+    under TPUVC_SCAN=pallas and TPUVC_EVENTS=pallas) and the full-width
+    architecture with conv_impl/d2s_impl="pallas" (K8, K9; interpret mode
+    in JAX)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPUVC_SCAN", "pallas")
+        mp.setenv("TPUVC_EVENTS", "pallas")
+        return _slice(DEFAULT_WORLD, FUSED)
 
 
 def _check_f0(run):
@@ -215,6 +232,31 @@ def test_default_slice_waveform_snr(default_run):
 def test_default_slice_ulaw_codes(default_run):
     """DEFAULT_WORLD ulaw8 codes, under the nccf slice's bounds."""
     _check_ulaw(default_run)
+
+
+def test_fused_slice_f0(fused_run):
+    """Fused-kernel configuration: voicing >= 98%, voiced f0 within 1e-3
+    relative (the fused scans are bit-identical to the ladders)."""
+    _check_f0(fused_run)
+
+
+def test_fused_slice_spectra_mcd(fused_run):
+    """Fused-kernel configuration: MCD < 0.1 dB for the analysis and the
+    converted envelopes (the fused layers compute what the default ones
+    do, float32 here)."""
+    _check_mcd(fused_run)
+
+
+def test_fused_slice_waveform_snr(fused_run):
+    """Fused-kernel configuration with the same jax-made noise: waveform
+    SNR >= 40 dB, as the default slice."""
+    _check_snr(fused_run)
+
+
+def test_fused_slice_ulaw_codes(fused_run):
+    """Fused-kernel configuration ulaw8 codes, under the default slice's
+    bounds."""
+    _check_ulaw(fused_run)
 
 
 def _assets():
@@ -343,29 +385,38 @@ def test_chip_smoke_refuses_the_cpu(tmp_path):
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's kernel, serve and rate phases run end to end on the
-    CPU at a small size for every path (every wrapper takes its plain
-    version, so nothing launches and the kernel/plain errors are exactly
-    0), and its JSON record names all six kernels with every key."""
+    CPU at a small size for every path, the fused path's streaming and
+    cli.analyze drives included (every wrapper takes its plain version, so
+    nothing launches and the kernel/plain errors are exactly 0), and its
+    JSON record names all nine kernels with every key."""
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
-    kern = chip_smoke.phase_kernels(cpu, dur_s=0.5,
+    state = chip_smoke.build_state()
+    kern = chip_smoke.phase_kernels(cpu, state, dur_s=0.5,
                                     batches={"default": 1, "harvest": 1})
     assert [k for k, _, _, _ in chip_smoke.KERNELS] == list(kern)
     assert all(r["max_abs_err"] == 0.0 for v in kern.values() for r in v)
     assert len(kern["events"]) == 2 and len(kern["smooth"]) == 3
-    state, model = chip_smoke.build_model(cpu)
+    assert len(kern["scan"]) == 2 and len(kern["conv"]) == 5
+    assert len(kern["d2s"]) == 3
+    assert kern["conv"][4]["bound_by"] == "operations"
+    assert kern["d2s"][0]["bound_by"] == "bytes"
     launches = {}
     for path in chip_smoke.PATHS:
         conv, launches[path], snr = chip_smoke.phase_serve(
-            path, cpu, state, model, durs=(0.6, 1.1))
+            path, cpu, state, durs=(0.6, 1.1))
         assert launches[path] == dict.fromkeys(kern, 0)
         assert (snr is None) == (path == "nccf")
+        if path == "fused":
+            entry = chip_smoke.phase_entry_points(conv, cpu)
+            assert entry["analyze_launches"] == dict.fromkeys(kern, 0)
         rate = chip_smoke.phase_rate(
             path, conv, "cpu", cpu, batch=2, dur_s=0.5,
             budget_batch=3 if path == "harvest" else None)
         assert rate["audio_s_per_s"] > 0 and rate["profile"] is None
-    assert rate["stages_s"]["d4c_nccf"] > 0
+        if path == "nccf":
+            assert rate["stages_s"]["d4c_nccf"] > 0
     record = chip_smoke.kernels_record(kern, launches)["kernels"]
     assert [r["name"] for r in record] == list(kern)
     keys = {"name", "route", "source", "replaces", "launches",

@@ -3,16 +3,23 @@
 A second package beside the JAX reference ``tpuvc``.  It keeps the old
 sub-package names so each module's counterpart is easy to find:
 
-  ops/      framing, Fourier transforms, OLA, transfer codecs, and the six
-            hand-written CUDA kernels (events, harmonics with refine_score,
-            window, smooth, topk) with their plain PyTorch versions; csrc/
+  ops/      framing, Fourier transforms, OLA, transfer codecs, and the nine
+            hand-written CUDA kernels (events with the fused block scans,
+            harmonics with refine_score, window, smooth, topk, the fused
+            conv + LayerNorm + LeakyReLU and depth-to-space + LayerNorm +
+            LeakyReLU layers) with their plain PyTorch versions; csrc/
             holds the sources
   dsp/      the WORLD analysis (DIO, StoneMask, Harvest, CheapTrick, D4C)
             and synthesis, with ``dsp/world.py`` as its entry point, and the
             port's copy of the DSP constants
-  models/   the VAW-GAN encoder/decoder (inference) and its parameters
-  convert/  the batched converter, the main path
-  io/, utils/  resampling, the architecture record, the device default
+  models/   the VAW-GAN encoder/decoder (inference; both kernel routes of
+            the architecture) and its parameters
+  convert/  the batched converter (the main path), f0 statistics and the
+            streaming converters
+  data/, cli/  corpus analysis (``python -m tpuvc_torch.cli.analyze``) and
+            the Tanhize normalizer
+  io/, utils/  WAV I/O and resampling, the .bin records and the corpus
+            layout, the architecture record, the device default
 
 It imports ``torch`` and never ``jax`` or the ``tpuvc`` package.  Its
 entry points run on the CUDA card unless the caller passes

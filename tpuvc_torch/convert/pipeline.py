@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tpuvc_torch.convert.f0 import convert_f0
+from tpuvc_torch.data.normalizer import Tanhize
 from tpuvc_torch.dsp.constants import DEFAULT_WORLD, EPSILON, WorldConfig
 from tpuvc_torch.dsp.synthesis import synthesis_noise, synthesize
 from tpuvc_torch.dsp.world import world_features
@@ -46,17 +47,13 @@ def _normalize_sp(sp, xmin, xmax):
     """energy-normalise + log10 + Tanhize.forward."""
     en = torch.sum(sp + EPSILON, dim=-1, keepdim=True)
     log_sp = torch.log10((sp + EPSILON) / en)
-    span = torch.clamp(xmax - xmin, min=1e-6)
-    u = torch.clamp((log_sp - xmin) / span, 0.0, 1.0) * 2.0 - 1.0
-    return u, en
+    return Tanhize(xmin, xmax).forward(log_sp), en
 
 
 def _denormalize_sp(u, en, xmin, xmax):
     # clip to the Tanhize range unconditionally, as the JAX version does:
     # an out-of-range frame would extrapolate log-SP past the corpus max
-    u = torch.clamp(u, -1.0, 1.0)
-    span = torch.clamp(xmax - xmin, min=1e-6)
-    log_sp = (u + 1.0) * 0.5 * span + xmin
+    log_sp = Tanhize(xmin, xmax).backward(torch.clamp(u, -1.0, 1.0))
     return torch.pow(10.0, log_sp) * en
 
 
@@ -93,8 +90,8 @@ class Converter:
     device mesh)."""
 
     # one call's audio-seconds budget: batch 128 x 4 s runs as one call
-    # on the 80 GB card with either f0 method (peak 13.5 GiB with DIO,
-    # 14.7 GiB with Harvest: PERF.md)
+    # on the 80 GB card with either f0 method (peak 13.50 GiB with DIO,
+    # 13.68 GiB with Harvest: PERF.md)
     MAX_AUDIO_S_PER_CALL = 512.0
 
     def __init__(self, model, assets: ConverterAssets,

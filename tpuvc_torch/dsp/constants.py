@@ -19,6 +19,9 @@ FRAME_PERIOD_MS = 5.0
 HOP = int(FS * FRAME_PERIOD_MS / 1000.0)      # 80 samples / frame
 FFT_SIZE = 1024
 SP_DIM = FFT_SIZE // 2 + 1                    # 513
+FEAT_DIM = SP_DIM * 2 + 2                     # sp + ap + f0 + en = 1028
+RECORD_DIM = FEAT_DIM + 1                     # + speaker label = 1029
+RECORD_BYTES = RECORD_DIM * 4
 EPSILON = 1e-10                               # log floor of the envelope
 
 # --- f0 search range ---
@@ -76,6 +79,12 @@ def max_refined_f0(f0_ceil: float = F0_CEIL) -> float:
 # --- CheapTrick ---
 CHEAPTRICK_Q1 = -0.15
 CHEAPTRICK_DEFAULT_F0 = 500.0
+
+
+def cheaptrick_fft_size(fs: int, f0_floor: float = F0_FLOOR) -> int:
+    """WORLD: fft_size = 2 ** (1 + floor(log2(3 fs / f0_floor + 1)))."""
+    return 2 ** (1 + int(math.log2(3.0 * fs / f0_floor + 1.0)))
+
 
 # --- D4C ---
 D4C_THRESHOLD = 0.85

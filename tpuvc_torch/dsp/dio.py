@@ -6,8 +6,12 @@ event-interval estimators per channel (zero crossings both ways, peaks,
 dips), the best channel per frame, then WORLD's contour fixing.
 
 The event stage goes through the event kernel
-(``tpuvc_torch/ops/events.py``).  The block-level prefix/suffix top-2
-scans use the exact cummax identity of ``dio._top2_max_scan``; the frame
+(``tpuvc_torch/ops/events.py``), and the block-level prefix/suffix top-2
+scans of all four event types through the scan kernel of the same module
+(``events.top2_block_scans``, one pass; on a CPU tensor its plain version,
+the exact cummax identity of ``dio._top2_max_scan``, gives the same bits).
+The JAX package chooses between the two with ``TPUVC_SCAN``; the port
+needs no switch, as the kernel is the faster route on the card.  The frame
 reads are ``dio._tracks_from_pairs``.  The two candidate-guided extension
 passes are serial by data dependence and run as Python loops over frames,
 vectorised over the batch.
@@ -25,41 +29,13 @@ from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, DIO_ALLOWED_RANGE,
                                        DIO_SCORE_CUTOFF, DIO_TARGET_FS,
                                        DIO_VOICE_RANGE_MINIMUM)
 from tpuvc_torch.ops.arith import rdiv
-from tpuvc_torch.ops.events import event_block_pairs
+from tpuvc_torch.ops.events import event_block_pairs, top2_block_scans
 
 
 def _boundary_f0s(f0_floor: float, f0_ceil: float) -> tuple[float, ...]:
     n = 1 + int(math.log2(f0_ceil / f0_floor) * DIO_CHANNELS_IN_OCTAVE)
     return tuple(f0_floor * 2.0 ** ((i + 1) / DIO_CHANNELS_IN_OCTAVE)
                  for i in range(n))
-
-
-def _top2_max_scan(a1: torch.Tensor, a2: torch.Tensor):
-    """Prefix top-2 over blocks (last axis) of sorted (largest, second)
-    pairs.  With pre[j] = cummax(a1)[j-1] (-inf at 0):
-    p1 = cummax(a1), p2 = max(cummax(min(a1, pre)), cummax(a2)) — exact,
-    with multiplicity (see tpuvc/dsp/dio.py:_top2_max_scan)."""
-    p1 = torch.cummax(a1, dim=-1).values
-    pre = torch.cat([torch.full_like(p1[:, :1], -torch.inf), p1[:, :-1]],
-                    dim=-1)
-    p2 = torch.maximum(torch.cummax(torch.minimum(a1, pre), dim=-1).values,
-                       torch.cummax(a2, dim=-1).values)
-    return p1, p2
-
-
-def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
-
-
-def _top2_min_scan_rev(b1: torch.Tensor, b2: torch.Tensor):
-    """Suffix bottom-2 of sorted (smallest, second) pairs; mirror of
-    _top2_max_scan with post[j] = suffix-min over j+1.. (+inf at the end)."""
-    s1 = _rev_cummin(b1)
-    post = torch.cat([s1[:, 1:], torch.full_like(s1[:, :1], torch.inf)],
-                     dim=-1)
-    s2 = torch.minimum(_rev_cummin(torch.maximum(b1, post)),
-                       _rev_cummin(b2))
-    return s1, s2
 
 
 def _edge_pad(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,10 +47,9 @@ def _edge_pad(v: torch.Tensor, n: int) -> torch.Tensor:
 
 def _tracks_from_pairs(p1, p2, s1, s2, fs_d: float, n_frames: int,
                        stride: int, ncells: int) -> torch.Tensor:
-    """Block top-2 event-time pairs [R, nb] -> one event type's f0 track
-    [R, N] (port of tpuvc/dsp/dio.py:_tracks_from_pairs)."""
-    p1, p2 = _top2_max_scan(p1, p2)
-    s1, s2 = _top2_min_scan_rev(s1, s2)
+    """One event type's block scans [R, nb] -> its f0 track [R, N] (port
+    of tpuvc/dsp/dio.py:_tracks_from_pairs): p1/p2 the prefix top-2 of the
+    block maxima, s1/s2 the suffix bottom-2 of the block minima."""
     neg = torch.full_like(p1[:, :1], -torch.inf)
     n_read = ncells // stride + 1
     a = _edge_pad(torch.cat([neg, p1], dim=-1)[:, :n_read], n_frames)
@@ -123,14 +98,18 @@ def _bank_tracks(filtered: torch.Tensor, fs_d: float, n_frames: int,
     """Event-interval f0 tracks for a channel bank: [R, Td] -> [R, 4, N]."""
     t = filtered.shape[-1]
     pairs = event_block_pairs(filtered.contiguous(), stride)  # [R, 16, nb]
+    # the derivative types' trailing block (past T-2 cells) is all fill,
+    # inert in both scan directions: scan whole rows, then slice per type
+    scans = top2_block_scans(pairs)
+    del pairs           # Harvest's is 4.6 GiB at 128 x 4 s: free it early
     nb_zc = -(-(t - 1) // stride)
     nb_pd = -(-(t - 2) // stride)
     rows = []
     for ti, (nc, nb) in enumerate(((t - 1, nb_zc), (t - 1, nb_zc),
                                    (t - 2, nb_pd), (t - 2, nb_pd))):
         rows.append(_tracks_from_pairs(
-            pairs[:, 4 * ti, :nb], pairs[:, 4 * ti + 1, :nb],
-            pairs[:, 4 * ti + 2, :nb], pairs[:, 4 * ti + 3, :nb],
+            scans[:, 4 * ti, :nb], scans[:, 4 * ti + 1, :nb],
+            scans[:, 4 * ti + 2, :nb], scans[:, 4 * ti + 3, :nb],
             fs_d, n_frames, stride, nc))
     return torch.stack(rows, dim=1)
 

@@ -5,7 +5,11 @@ arrays) onto :class:`tpuvc_torch.models.vae.VAWGAN`'s state dict:
 Flax ``Conv`` kernels [K, Cin, Cout] become ``conv1d`` weights
 [Cout, Cin, K], ``Dense`` kernels [in, out] become ``linear`` weights
 [out, in], and LayerNorm scale/bias and the embedding table are taken as
-they are.  The critic's parameters are not used.
+they are.  The critic's parameters are not used.  The fused-kernel
+architecture (``conv_impl``/``d2s_impl="pallas"``) names its parameters
+otherwise in Flax (``ConvStack_0/conv{i}_kernel``, ``ln{i}_scale``,
+``decoder/d2s_ln{i}_scale``, and the remaining decoder LayerNorms counted
+without the fused ones) but maps onto the same state dict.
 
 ``init_params`` draws a full-width model from a ``torch.Generator``
 (LeCun-normal weights like Flax's defaults, zero biases, unit norms), for
@@ -54,8 +58,15 @@ def from_flax(tree, arch: Architecture) -> dict[str, torch.Tensor]:
     enc = p["encoder"]
     stack = enc["ConvStack_0"]
     for i in range(len(arch.encoder.kernel)):
-        put(f"encoder.stack.convs.{i}", _conv(stack[f"Conv_{i}"]))
-        put(f"encoder.stack.norms.{i}", _norm(stack[f"LayerNorm_{i}"]))
+        if arch.conv_impl == "pallas":
+            conv = {"kernel": stack[f"conv{i}_kernel"],
+                    "bias": stack[f"conv{i}_bias"]}
+            norm = {"scale": stack[f"ln{i}_scale"],
+                    "bias": stack[f"ln{i}_bias"]}
+        else:
+            conv, norm = stack[f"Conv_{i}"], stack[f"LayerNorm_{i}"]
+        put(f"encoder.stack.convs.{i}", _conv(conv))
+        put(f"encoder.stack.norms.{i}", _norm(norm))
     put("encoder.mu", _dense(enc["Dense_0"]))
     put("encoder.log_var", _dense(enc["Dense_1"]))
 
@@ -64,10 +75,17 @@ def from_flax(tree, arch: Architecture) -> dict[str, torch.Tensor]:
     put("decoder.dense", _dense(dec["Dense_0"]))
     put("decoder.dense_norm", _norm(dec["LayerNorm_0"]))
     n = len(arch.generator.kernel)
-    for i in range(n):
+    ln = 1                       # LayerNorm_0 is the dense layer's
+    for i, s in enumerate(arch.generator.stride):
         put(f"decoder.convs.{i}", _conv(dec[f"Conv_{i}"]))
-        if i < n - 1:
-            put(f"decoder.norms.{i}", _norm(dec[f"LayerNorm_{i + 1}"]))
+        if i == n - 1:
+            continue
+        if s > 1 and arch.d2s_impl == "pallas":
+            norm = {"scale": dec[f"d2s_ln{i}_scale"],
+                    "bias": dec[f"d2s_ln{i}_bias"]}
+        else:
+            norm, ln = dec[f"LayerNorm_{ln}"], ln + 1
+        put(f"decoder.norms.{i}", _norm(norm))
     return sd
 
 

@@ -1,14 +1,21 @@
 """The speaker-conditioned VAW-GAN's encoder and decoder, for inference.
 
 Port of ``tpuvc/models/vae.py`` (``ConvStack``, ``Encoder``, ``Decoder``,
-``VAWGAN.encode``/``decode``) with its default XLA convolution path.
-Activations stay channels-last [B, L, C] between layers, as in the Flax
-model, so the encoder's flatten and the decoder's depth-to-space are the
-same reshapes; each convolution transposes to PyTorch's [B, C, L] around
-``F.conv1d``.  Flax conventions kept: ``padding="SAME"`` (total
-(out-1)*s + k - L, low half first), LayerNorm epsilon 1e-6.  Parameters
-are float32; ``dtype`` (bfloat16 on the card) is the compute type.  The
-critic and training come later.
+``VAWGAN.encode``/``decode``).  Activations stay channels-last [B, L, C]
+between layers, as in the Flax model, so the encoder's flatten and the
+decoder's depth-to-space are the same reshapes; each convolution
+transposes to PyTorch's [B, C, L] around ``F.conv1d``.  Flax conventions
+kept: ``padding="SAME"`` (total (out-1)*s + k - L, low half first),
+LayerNorm epsilon 1e-6.  Parameters are float32; ``dtype`` (bfloat16 on the
+card) is the compute type.  The critic and training come later.
+
+The architecture's two kernel switches pick routes, not parameters (the
+state dict is the same for both):
+- ``conv_impl="pallas"``: each encoder layer is one fused conv + LayerNorm
+  + LeakyReLU (``ops/conv.py``), in float32 whatever the compute type, as
+  the JAX branch; the dense heads then cast back to the compute type.
+- ``d2s_impl="pallas"``: after each stride-s decoder conv but the last,
+  depth-to-space + LayerNorm + LeakyReLU run fused (``ops/d2s.py``).
 """
 
 from __future__ import annotations
@@ -17,15 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuvc_torch.ops.conv import LN_EPS, conv_ln_lrelu, same_pad
+from tpuvc_torch.ops.d2s import d2s_ln_lrelu
 from tpuvc_torch.utils.config import Architecture, NetSpec
 
-LN_EPS = 1e-6          # flax.linen.LayerNorm default
-
-
-def _same_pad(length: int, k: int, s: int) -> tuple[int, int]:
-    out = -(-length // s)
-    total = max((out - 1) * s + k - length, 0)
-    return total // 2, total - total // 2
+IMPLS = ("xla", "pallas")
 
 
 class Conv(nn.Module):
@@ -39,7 +42,7 @@ class Conv(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         x = h.transpose(1, 2)
-        x = F.pad(x, _same_pad(x.shape[-1], self.k, self.stride))
+        x = F.pad(x, same_pad(x.shape[-1], self.k, self.stride))
         y = F.conv1d(x, self.weight.to(h.dtype), self.bias.to(h.dtype),
                      stride=self.stride)
         return y.transpose(1, 2)
@@ -67,11 +70,14 @@ class Dense(nn.Module):
 
 
 class ConvStack(nn.Module):
-    """Strided convs, each followed by LayerNorm and LeakyReLU."""
+    """Strided convs, each followed by LayerNorm and LeakyReLU; ``fused``
+    runs each layer as the fused kernel, in float32."""
 
-    def __init__(self, spec: NetSpec, cin: int, slope: float):
+    def __init__(self, spec: NetSpec, cin: int, slope: float,
+                 fused: bool = False):
         super().__init__()
         self.slope = slope
+        self.fused = fused
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for k, s, c in zip(spec.kernel, spec.stride, spec.output):
@@ -81,7 +87,12 @@ class ConvStack(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         for conv, norm in zip(self.convs, self.norms):
-            h = F.leaky_relu(norm(conv(h)), self.slope)
+            if self.fused:
+                h = conv_ln_lrelu(h, conv.weight.permute(2, 1, 0), conv.bias,
+                                  norm.weight, norm.bias, conv.stride,
+                                  self.slope)
+            else:
+                h = F.leaky_relu(norm(conv(h)), self.slope)
         return h
 
 
@@ -96,14 +107,17 @@ class Encoder(nn.Module):
 
     def __init__(self, arch: Architecture):
         super().__init__()
-        self.stack = ConvStack(arch.encoder, 1, arch.lrelu_slope)
+        self.stack = ConvStack(arch.encoder, 1, arch.lrelu_slope,
+                               fused=arch.conv_impl == "pallas")
         flat = _stack_len(arch.x_dim, arch.encoder) * arch.encoder.output[-1]
         self.mu = Dense(flat, arch.z_dim)
         self.log_var = Dense(flat, arch.z_dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype):
         h = self.stack(x[..., None].to(dtype))              # [B, L, C]
-        h = h.reshape(h.shape[0], -1)                       # channels-last
+        # channels-last flatten; the fused stack's float32 output goes back
+        # to the compute type, as nn.Dense(dtype=...) casts its input
+        h = h.reshape(h.shape[0], -1).to(dtype)
         return self.mu(h).float(), self.log_var(h).float()
 
 
@@ -119,6 +133,7 @@ class Decoder(nn.Module):
         spec = arch.generator
         self.slope = arch.lrelu_slope
         self.tanh = arch.output_activation == "tanh"
+        self.fused_d2s = arch.d2s_impl == "pallas"
         self.embed = nn.Parameter(torch.empty(arch.y_dim, arch.y_emb_dim))
         c0 = spec.output[0]
         self.dense = Dense(arch.z_dim + arch.y_emb_dim, self.base_len * c0)
@@ -145,6 +160,11 @@ class Decoder(nn.Module):
         last = len(self.convs) - 1
         for i, (conv, s) in enumerate(zip(self.convs, self.strides)):
             h = conv(h)
+            if s > 1 and i < last and self.fused_d2s:
+                norm = self.norms[i]
+                h = d2s_ln_lrelu(h.contiguous(), norm.weight, norm.bias, s,
+                                 self.slope)
+                continue
             if s > 1:   # depth-to-space, channels-last: [B, L, c*s] -> [B, L*s, c]
                 h = h.reshape(h.shape[0], h.shape[1] * s, -1)
             if i < last:
@@ -160,10 +180,11 @@ class VAWGAN(nn.Module):
 
     def __init__(self, arch: Architecture):
         super().__init__()
-        if arch.conv_impl != "xla" or arch.d2s_impl != "xla":
-            raise NotImplementedError(
-                "tpuvc_torch ports the default conv_impl/d2s_impl='xla' "
-                "parameter tree only")
+        for field in ("conv_impl", "d2s_impl"):
+            if getattr(arch, field) not in IMPLS:
+                raise ValueError(f"unknown {field} "
+                                 f"{getattr(arch, field)!r}; expected one "
+                                 f"of {IMPLS}")
         self.arch = arch
         self.dtype = {"float32": torch.float32,
                       "bfloat16": torch.bfloat16}[arch.compute_dtype]

@@ -23,6 +23,15 @@ multiply-add to contract.
 
 The plain version is the port of the XLA twin, ``tpuvc/dsp/dio.py``
 ``_channel_tracks`` (its cell stage) and ``_block_top2``.
+
+``top2_block_scans`` replaces ``tpuvc/ops/pallas_events.py:
+top2_block_scans``: all eight block-level scans of those pairs (per event
+type a prefix top-2 of the max pairs and a suffix bottom-2 of the min
+pairs) in one pass, CUDA kernel ``csrc/scan.cu``, one warp per scan.  Its
+plain version is the cummax ladders of ``tpuvc/dsp/dio.py``
+(``_top2_max_scan``, ``_top2_min_scan_rev``: the JAX package's default
+route, per event type).  Both are selections only, so they agree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 from tpuvc_torch.ops import _build
 
 launches = 0
+launches_scan = 0
 
 
 def n_blocks(t: int, stride: int) -> int:
@@ -101,4 +111,67 @@ def event_block_pairs(bank: torch.Tensor, stride: int) -> torch.Tensor:
     _build.launch("tpuvc_event_block_pairs", bank.device, bank.data_ptr(),
                   out.data_ptr(), r, t, stride, nb)
     launches += 1
+    return out
+
+
+def top2_max_scan(a1: torch.Tensor, a2: torch.Tensor):
+    """Prefix top-2 over blocks (last axis) of sorted (largest, second)
+    pairs.  With pre[j] = cummax(a1)[j-1] (-inf at 0):
+    p1 = cummax(a1), p2 = max(cummax(min(a1, pre)), cummax(a2)) — exact,
+    with multiplicity (see tpuvc/dsp/dio.py:_top2_max_scan)."""
+    p1 = torch.cummax(a1, dim=-1).values
+    pre = torch.cat([torch.full_like(p1[..., :1], -torch.inf),
+                     p1[..., :-1]], dim=-1)
+    p2 = torch.maximum(torch.cummax(torch.minimum(a1, pre), dim=-1).values,
+                       torch.cummax(a2, dim=-1).values)
+    return p1, p2
+
+
+def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
+
+
+def top2_min_scan_rev(b1: torch.Tensor, b2: torch.Tensor):
+    """Suffix bottom-2 of sorted (smallest, second) pairs; mirror of
+    top2_max_scan with post[j] = suffix-min over j+1.. (+inf at the end)."""
+    s1 = _rev_cummin(b1)
+    post = torch.cat([s1[..., 1:], torch.full_like(s1[..., :1], torch.inf)],
+                     dim=-1)
+    s2 = torch.minimum(_rev_cummin(torch.maximum(b1, post)),
+                       _rev_cummin(b2))
+    return s1, s2
+
+
+def top2_block_scans_plain(pairs: torch.Tensor) -> torch.Tensor:
+    """[R, 16, nb] block pairs -> the same layout with rows 4t/4t+1 the
+    prefix top-2 and rows 4t+2/4t+3 the suffix bottom-2 of event type t:
+    the ladders, all four types at once."""
+    r, _, nb = pairs.shape
+    p1, p2 = top2_max_scan(pairs[:, 0::4], pairs[:, 1::4])     # [R, 4, nb]
+    s1, s2 = top2_min_scan_rev(pairs[:, 2::4], pairs[:, 3::4])
+    return torch.stack([p1, p2, s1, s2], dim=2).reshape(r, 16, nb)
+
+
+def top2_block_scans(pairs: torch.Tensor) -> torch.Tensor:
+    """All eight block-level scans of ``event_block_pairs``' output:
+    [R, 16, nb] -> [R, 16, nb] (any nb; trailing all-fill blocks are inert
+    in both directions, so a type's scan may be sliced to its own nb after).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    global launches_scan
+    if pairs.dim() != 3 or pairs.shape[1] != 16 or (
+            pairs.dtype != torch.float32):
+        raise ValueError(f"pairs must be [R, 16, nb] float32, got "
+                         f"{tuple(pairs.shape)} {pairs.dtype}")
+    if pairs.device.type == "cpu":
+        return top2_block_scans_plain(pairs)
+    if pairs.device.type != "cuda" or not pairs.is_contiguous():
+        raise ValueError("scan kernel needs a contiguous CUDA tensor")
+    r, _, nb = pairs.shape
+    out = torch.empty_like(pairs)
+    _build.launch("tpuvc_top2_block_scans", pairs.device, pairs.data_ptr(),
+                  out.data_ptr(), r, nb)
+    launches_scan += 1
     return out

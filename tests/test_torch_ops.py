@@ -206,6 +206,125 @@ def test_box_smooth_plain_matches_xla_pallas_and_oracle():
     np.testing.assert_allclose(got[1], o, rtol=1e-4, atol=1e-10)
 
 
+def _smooth_rows(cap, signed, n=40, seed=11):
+    """Spectra (signed ones as D4C's f0/2 site smooths) and widths from
+    below one bin (15.625 Hz) to above the cap."""
+    rng = np.random.default_rng(seed)
+    ps = 10.0 ** rng.uniform(-8, 0, (n, 513))
+    if signed:
+        ps = ps * rng.choice([-1.0, 1.0], ps.shape)
+    width = np.concatenate([[3.0, 15.0, 15.625, 16.0, cap, cap + 150.0],
+                            rng.uniform(3.0, cap + 200.0, n - 6)])
+    return (torch.from_numpy(ps.astype(np.float32)),
+            torch.from_numpy(width.astype(np.float32)))
+
+
+@pytest.mark.parametrize("step", [1, 8])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("cap", [810.0, 1056.0])
+def test_box_smooth_nonzero_span_is_bit_equal(cap, signed, step):
+    """The premise of the smoothing kernel's tap trimming: summing, in
+    ascending order, only the taps from a frame's first to its last
+    nonzero weight (rounded up to whole steps of ``step`` taps, with zero
+    weights past 2K and a zero-padded row, as the kernel runs them) gives
+    box_smooth_plain bit for bit on finite spectra (torch.equal).  The
+    weights come from smooth.box_weights, so this also holds them equal to
+    the plain version's."""
+    fs, fft_size = 16000, 1024
+    ps, width = _smooth_rows(cap, signed)
+    n, half = ps.shape
+    k = smooth.n_taps_half(fs, fft_size, cap)
+    wgt = smooth.box_weights(width, fs, fft_size, cap)
+    nz = wgt != 0.0
+    assert not bool(nz.all(dim=1).any())        # every frame trims taps
+    has = nz.any(dim=1)
+    lo = torch.where(has, nz.int().argmax(dim=1), 0)
+    hi = torch.where(has, 2 * k - nz.flip(1).int().argmax(dim=1), -1)
+    steps = torch.div(hi - lo + step, step, rounding_mode="floor")
+    wgt = torch.cat([wgt, torch.zeros((n, step))], dim=1)
+    ext = torch.cat([smooth.mirror_extend(ps, k), torch.zeros((n, step))],
+                    dim=1)
+    f = torch.arange(half)[None, :]
+    sm = torch.zeros_like(ps)
+    for t in range(int((steps * step).max())):
+        tap = lo + t                              # [N]
+        on = (t < steps * step)[:, None]
+        g = wgt.gather(1, torch.clamp(tap, max=wgt.shape[1] - 1)[:, None])
+        e = ext.gather(1, torch.clamp(tap[:, None] + f, max=ext.shape[1] - 1))
+        sm = torch.where(on, sm + e * g, sm)
+    assert torch.equal(sm, smooth.box_smooth_plain(ps, width, fs, fft_size,
+                                                   cap))
+
+
+@pytest.mark.parametrize("half,k", [(513, 1), (513, 27), (513, 35),
+                                    (513, 511), (9, 1), (9, 7)])
+def test_smooth_reflection_map_matches_mirror_extend(half, k):
+    """The smoothing kernel stages the extended row straight from ps with
+    i < 0 -> -i, i >= half -> 2 (half - 1) - i (i = ext index - k): that
+    index map is mirror_extend."""
+    rng = np.random.default_rng(half + k)
+    ps = torch.from_numpy(rng.standard_normal((3, half)).astype(np.float32))
+    e = torch.arange(half + 2 * k) - k
+    idx = torch.where(e < 0, -e, torch.where(e >= half, 2 * (half - 1) - e,
+                                             e))
+    assert torch.equal(ps[:, idx], smooth.mirror_extend(ps, k))
+
+
+@pytest.mark.parametrize("w", [1024, 1000])
+@pytest.mark.parametrize("fold", [True, False])
+def test_derivative_window_from_lane_neighbours(fold, w):
+    """The harmonic kernel's lanes b = j * 32 + lane take win[b - 1] and
+    win[b + 1] from the adjacent lanes, at lane 0 from the previous block's
+    lane 31 and at lane 31 from the next block's lane 0 (0 past the ends),
+    and zero the derivative at b = 0 and b >= lanes - 1: the derivative
+    window so formed gives _slot_folded's (or _slot's) d_re and d_im bit
+    for bit.  W = 1000 leaves a partial last block of 32."""
+    fs = 16000.0
+    rng = np.random.default_rng(w)
+    seg = torch.from_numpy(rng.standard_normal((9, w)).astype(np.float32))
+    f0 = torch.from_numpy(np.array(
+        [harmonics.fold_floor(w, fs), 60.0, 95.5, 172.0, 250.0, 401.0, 800.0,
+         1500.0, 3000.0], np.float32))[:, None]
+    lanes = w // 2 if fold else w
+    b = torch.arange(lanes, dtype=torch.float32)[None, :]
+    pos = b if fold else b - w // 2
+    half_len = torch.floor(harmonics.rdiv(1.5 * fs, f0) + 1.0)
+    cp = torch.cos((2.0 * np.pi / (3.0 * fs)) * f0 * pos)
+    zero = torch.zeros(())
+    win = torch.where(torch.abs(pos) <= half_len,
+                      0.42 + 0.5 * cp + 0.08 * (2.0 * cp * cp - 1.0), zero)
+    nj = -(-lanes // 32)
+    blocks = torch.cat([win, torch.zeros((9, nj * 32 - lanes))],
+                       dim=1).reshape(9, nj, 32)
+    zcol = torch.zeros((9, nj, 1))
+    prev31 = torch.cat([torch.zeros((9, 1)), blocks[:, :-1, 31]], dim=1)
+    next0 = torch.cat([blocks[:, 1:, 0], torch.zeros((9, 1))], dim=1)
+    up = torch.cat([zcol, blocks[:, :, :31]], dim=2)          # shfl_up 1
+    down = torch.cat([blocks[:, :, 1:], zcol], dim=2)         # shfl_down 1
+    lane = torch.arange(32)
+    wl = torch.where(lane == 0, prev31[:, :, None], up)
+    wr = torch.where(lane == 31, next0[:, :, None], down)
+    bb = (torch.arange(nj)[:, None] * 32 + lane).reshape(-1)[:lanes]
+    edge = (bb == 0) | (bb >= lanes - 1)
+    dwin = torch.where(edge, zero, -0.5 * (wr - wl).reshape(9, -1)[:, :lanes])
+    sp = torch.sin((2.0 * np.pi / (3.0 * fs)) * f0 * pos)
+    if fold:
+        e, o = harmonics._fold_eo(seg)
+        mask = torch.abs(pos) <= half_len
+        em, om = torch.where(mask, e, zero), torch.where(mask, o, zero)
+        ref = harmonics._slot_folded((e, o), f0, fs, 6, True)
+    else:
+        em = om = torch.where(torch.abs(pos) <= half_len, seg, zero)
+        ref = harmonics._slot(seg, f0, fs, 6, True)
+    de, do = em * dwin, om * dwin
+    dre, dim_ = [], []
+    for ch, sh in harmonics._recurrence(cp, sp, 6):
+        dre.append(torch.sum(do * ch, dim=-1))
+        dim_.append(-torch.sum(de * sh, dim=-1))
+    assert torch.equal(torch.stack(dre, dim=-1), ref[2])
+    assert torch.equal(torch.stack(dim_, dim=-1), ref[3])
+
+
 def _tied_rows(seed=3, n=50, c=512):
     """Uniform rows plus the tie patterns of tests/test_ops.py:263."""
     rng = np.random.default_rng(seed)
@@ -428,18 +547,27 @@ def test_events_kernel_bitexact(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("fold", [True, False])
 @pytest.mark.parametrize("with_if", [True, False])
-def test_harmonics_kernel_matches_plain(cuda, fold, with_if):
-    """rtol 1e-4 / atol 1e-4 of the largest output: the block reduction
-    sums in another order than torch.sum."""
+def test_harmonics_kernel_matches_plain(cuda, fold, with_if, k):
+    """rtol 1e-4 / atol 1e-4 of the largest output: the warp reduction
+    sums in another order than torch.sum.  61 frames (not a multiple of
+    the kernel's 8 warps per block), K = 1 and 2 slots, f0 at the fold
+    floor, with 6 f0 above Nyquist and 0 (clamped) among the rows."""
     rng = np.random.default_rng(6)
-    _, seg = _frames(n=64)
-    f0 = torch.from_numpy(rng.uniform(60, 500, (64, 2)).astype(np.float32))
+    _, seg = _frames(n=61)
+    f0 = rng.uniform(60, 500, (61, k)).astype(np.float32)
+    f0[0, 0] = harmonics.fold_floor(1024, 16000.0)
+    f0[1, -1] = 1500.0
+    f0[2, 0] = 0.0
+    f0 = torch.from_numpy(f0)
     ref = harmonics.harmonic_dft_plain(seg, f0, 16000, with_if=with_if,
                                        fold=fold)
+    n0 = harmonics.launches
     got = harmonics.harmonic_dft(seg.to(cuda), f0.to(cuda), 16000,
                                  with_if=with_if, fold=fold)
+    assert harmonics.launches == n0 + 1
     for g, r in zip(got, ref):
         if r is None:
             assert g is None
@@ -464,17 +592,23 @@ def test_window_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_smooth_kernel_matches_plain(cuda):
-    """rtol 1e-5 / atol 1e-12 as on the CPU (products and sums are rounded
-    separately in both, so they agree bit for bit in practice)."""
-    rng = np.random.default_rng(8)
-    ps = torch.from_numpy((10.0 ** rng.uniform(-8, 0, (300, 513))).astype(
-        np.float32))
-    width = torch.from_numpy(rng.uniform(30, 900, 300).astype(np.float32))
-    ref = smooth.box_smooth_plain(ps, width, 16000, 1024, 810.0)
-    got = smooth.box_smooth(ps.to(cuda), width.to(cuda), 16000, 1024, 810.0)
-    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-5,
-                               atol=1e-12)
+@pytest.mark.parametrize("n", [1, 301])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("cap", [810.0, 1056.0])
+def test_smooth_kernel_matches_plain(cuda, cap, signed, n):
+    """Bit-equal (torch.equal): the same weights, the products and sums
+    rounded separately and taken in the same order; the kernel skips only
+    zero-weight taps.  Both caps (55 and 71 taps), signed spectra (D4C's
+    f0/2 site), widths below one bin and above the cap, one frame and a
+    frame count that is not a multiple of the kernel's 8 per block."""
+    ps, width = _smooth_rows(cap, signed, n=301, seed=8)
+    if n == 1:
+        ps, width = ps[5:6], width[:1]
+    ref = smooth.box_smooth_plain(ps, width, 16000, 1024, cap)
+    n0 = smooth.launches
+    got = smooth.box_smooth(ps.to(cuda), width.to(cuda), 16000, 1024, cap)
+    assert smooth.launches == n0 + 1
+    assert torch.equal(got.cpu(), ref)
 
 
 @pytest.mark.gpu

@@ -383,6 +383,25 @@ def test_chip_smoke_refuses_the_cpu(tmp_path):
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
 
 
+@pytest.mark.parametrize("cap", [810.0, 1056.0])
+def test_chip_smoke_smooth_library_matches_plain(cap):
+    """chip_smoke.py's library yardstick for the box smoothing (one
+    depthwise F.conv1d over the mirror-extended rows) computes the same
+    function as box_smooth_plain: rtol 1e-5, atol 1e-6 of the largest
+    value (the convolution sums the taps in another order)."""
+    import chip_smoke
+    from tpuvc_torch.ops.smooth import box_smooth_plain
+    rng = np.random.default_rng(4)
+    ps = torch.from_numpy((10.0 ** rng.uniform(-6, 0, (23, 513))).astype(
+        np.float32))
+    width = torch.from_numpy(rng.uniform(3.0, cap + 200.0, 23).astype(
+        np.float32))
+    got = chip_smoke.smooth_conv1d(ps, width, 16000, 1024, cap)()[0]
+    ref = box_smooth_plain(ps, width, 16000, 1024, cap)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-6 * ref.abs().max().item())
+
+
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's kernel, serve and rate phases run end to end on the
     CPU at a small size for every path, the fused path's streaming and

@@ -3,10 +3,30 @@
 // them (refine_score).
 //
 // harmonic_dft replaces tpuvc/ops/pallas_harmonics.py:harmonic_dft_pallas
-// (_kernel, _slot_folded, _slot, _fold_eo).  One block per (frame, slot).
-// Folded: lanes b = 0..W/2-1 read e[b] = seg[c+b] + seg[c-b] (e[0] =
-// seg[c]) and o[b] = seg[c+b] - seg[c-b] (o[0] = 0) straight from the row;
-// unfolded: lanes 0..W-1 with base = col - W/2.
+// (_kernel, _slot_folded, _slot, _fold_eo).  Folded: lanes b = 0..W/2-1
+// read e[b] = seg[c+b] + seg[c-b] (e[0] = seg[c]) and o[b] = seg[c+b] -
+// seg[c-b] (o[0] = 0) straight from the row; unfolded: lanes 0..W-1 with
+// base = col - W/2.  Each lane evaluates the Blackman window over +-1.5
+// periods and the harmonic bases (triple-angle + angle-addition recurrence)
+// from one cos/sin pair and accumulates 25 sums (13 without the derivative
+// window) in registers.
+//
+// Bound: bytes; each row is read once (420 MB at the main path's [102528,
+// 1024], ~0.13 ms at 3.35 TB/s), and the lanes' own arithmetic (one
+// accurate sincosf and ~110 flops per lane) is about twice that at the
+// card's issue rate.  The first design ran one block of 256 threads per
+// (frame, slot), 2 lanes of work a thread, at 11% of the bound: its 25-sum
+// block reduction (shuffles in 8 warps, a barrier, warp 0 over the
+// partials, a second barrier) outweighed the lanes' work, the window went
+// through shared memory behind a barrier only for the derivative's
+// neighbours, and each lane took three accurate transcendentals.  This
+// design runs one warp per (frame, slot), kDftWarps of them per block and
+// no block barrier: lanes b = j * 32 + lane (coalesced reads of both row
+// halves), one sincosf per lane (the window's cosine is the phase cosine),
+// the window's neighbours by shuffle (the ends of a block of 32 from the
+// previous block's lane 31 and the next block's lane 0, computed one block
+// ahead together with its samples), and one recursive-halving warp
+// reduction of the sums, after which lane i holds sum i and stores it.
 //
 // refine_score replaces tpuvc/ops/pallas_harmonics.py:refine_score_pallas
 // (_refine_kernel, _refine_math).  One block per frame: the row is folded
@@ -16,21 +36,12 @@
 // and, if the refinement is accepted, pass 2 (the DFT and energy at the
 // refined f0) and the harmonic-concentration score.  An empty or rejected
 // slot writes 0 without a pass, as the Pallas outputs are 0 there.  Nothing
-// of the per-harmonic sums leaves the chip.
-//
-// Both run one slot through slot_partials: each lane evaluates the
-// Blackman window over +-1.5 periods from one cosf/sinf pair, the harmonic
-// bases by the triple-angle + angle-addition recurrence, and accumulates
-// the partial sums in registers; the window sits in shared memory so the
-// derivative window -0.5 (win[b+1] - win[b-1]) reads its neighbours.
-// block_sums finishes (warp shuffles, then one warp over the partials).
-//
-// Bound: at 768-1024 samples per row both read each row once (393-420 MB
-// at the main path's shapes, ~0.12 ms at 3.35 TB/s); the work per lane is
-// two accurate transcendentals and ~100 flops per slot and pass, and each
-// slot ends in a block reduction of 25 (pass 1) or 13 (pass 2) sums.  The
-// design reads each row once, keeps every intermediate on chip and writes
-// 25 floats per (frame, slot) (harmonic_dft) or 2 (refine_score).
+// of the per-harmonic sums leaves the chip.  Each pass runs slot_partials:
+// the window sits in shared memory so the derivative window -0.5 (win[b+1]
+// - win[b-1]) reads its neighbours, and block_sums finishes (warp
+// shuffles, then one warp over the partials).  Bound: operations (two
+// passes of the per-lane work per accepted slot, 393 MB read once at
+// Harvest's shapes).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,7 +58,7 @@ constexpr int kDim = kDre + kHarm;
 constexpr int kSums = kDim + kHarm;
 constexpr int kNoIf = kEn + 1;
 constexpr int kMaxLanes = 2048;
-constexpr int kDftThreads = 256;
+constexpr int kDftWarps = 8;
 constexpr int kRefineThreads = 128;
 constexpr int kRefineMaxHalf = 512;
 
@@ -149,20 +160,128 @@ __device__ __forceinline__ void slot_partials(Fetch fetch, float f, float fs,
     }
 }
 
-__global__ void harmonic_dft_kernel(const float* __restrict__ seg,
-                                    const float* __restrict__ f0,
-                                    float* __restrict__ xre,
-                                    float* __restrict__ xim,
-                                    float* __restrict__ dre,
-                                    float* __restrict__ dim,
-                                    float* __restrict__ en, int k_slots,
-                                    int w, float fs, int fold, int with_if) {
-    __shared__ float win_s[kMaxLanes];
-    __shared__ float part[kDftThreads / 32][kSums];
-    __shared__ float sums[kSums];
-    const int frame = blockIdx.x / k_slots;
-    const int slot = blockIdx.x % k_slots;
-    const float* row = seg + (long long)frame * w;
+// The warp's sums of acc[0, kN): lane i < kN returns the total of acc[i].
+// Recursive halving: at each of 5 steps a lane keeps half of its live
+// values and adds its partner's copy of them, 31 shuffles in all for up to
+// 32 sums (the butterfly per sum would take 5 each).
+template <int kN>
+__device__ __forceinline__ float warp_sums(const float (&acc)[kSums]) {
+    const int lane = threadIdx.x & 31;
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = i < kN ? acc[i] : 0.0f;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+        const bool upper = lane & step;
+#pragma unroll
+        for (int i = 0; i < step; ++i) {
+            const float send = upper ? v[i] : v[i + step];
+            const float keep = upper ? v[i + step] : v[i];
+            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, step);
+        }
+    }
+    return v[0];
+}
+
+// One warp's sums of one slot at frequency f (already clamped), over lanes
+// b = j * 32 + lane.  Each lane takes one sincosf per b (the window's
+// cosine is the phase cosine); the derivative window's neighbours b +- 1
+// come from the adjacent lanes by shuffle, and at the ends of a block of 32
+// from the previous block's lane 31 (kept) and the next block's lane 0
+// (computed one block ahead, with its samples).  fetch(b, a, o) as in
+// slot_partials.
+template <bool kIf, class Fetch>
+__device__ __forceinline__ void warp_slot(Fetch fetch, float f, float fs,
+                                          int lanes, int c, bool fold,
+                                          float (&acc)[kSums]) {
+    const unsigned all = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const float half_len = floorf(1.5f * fs / f + 1.0f);
+    const float kf =
+        (float)(2.0 * 3.14159265358979323846 / (3.0 * (double)fs)) * f;
+    // lane b's window, phase cosine and sine, and masked samples
+    auto at = [&](int b, float& win, float& cp, float& sp, float& a,
+                  float& o) {
+        const float pos = fold ? (float)b : (float)(b - c);
+        const bool m = b < lanes && fabsf(pos) <= half_len;
+        sincosf(kf * pos, &sp, &cp);
+        win = m ? 0.42f + 0.5f * cp + 0.08f * (2.0f * cp * cp - 1.0f) : 0.0f;
+        a = 0.0f;
+        o = 0.0f;
+        if (b < lanes) fetch(b, a, o);
+        a = m ? a : 0.0f;
+        o = m ? o : 0.0f;
+    };
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+    float win, cp, sp, a, o;
+    at(lane, win, cp, sp, a, o);
+    float prev = 0.0f;                     // win[b0 - 1]
+    for (int b0 = 0; b0 < lanes; b0 += 32) {
+        const int b = b0 + lane;
+        float win_n = 0.0f, cp_n = 0.0f, sp_n = 0.0f, a_n = 0.0f, o_n = 0.0f;
+        if (b0 + 32 < lanes)               // warp-uniform
+            at(b + 32, win_n, cp_n, sp_n, a_n, o_n);
+        const float we = a * win, wo = o * win;
+        if (fold) {
+            const float h0 = b == 0 ? 1.0f : 0.5f;
+            acc[kEn] += h0 * (we * we + wo * wo);
+        } else {
+            acc[kEn] += we * we;
+        }
+        float de = 0.0f, dd = 0.0f;
+        if (kIf) {
+            const float up = __shfl_up_sync(all, win, 1);
+            const float down = __shfl_down_sync(all, win, 1);
+            const float first_n = __shfl_sync(all, win_n, 0);
+            const float wl = lane == 0 ? prev : up;          // win[b - 1]
+            const float wr = lane == 31 ? first_n : down;    // win[b + 1]
+            const bool edge = b == 0 || b >= lanes - 1;
+            const float dwin = edge ? 0.0f : -0.5f * (wr - wl);
+            de = a * dwin;
+            dd = o * dwin;
+            prev = __shfl_sync(all, win, 31);
+        }
+        const float c1 = cp * (4.0f * cp * cp - 3.0f);
+        const float s1 = sp * (3.0f - 4.0f * sp * sp);
+        float ch = c1, sh = s1;
+#pragma unroll
+        for (int h = 0; h < kHarm; ++h) {
+            if (h) {
+                const float nc = ch * c1 - sh * s1;
+                const float ns = sh * c1 + ch * s1;
+                ch = nc;
+                sh = ns;
+            }
+            acc[h] += we * ch;                  // x_re
+            acc[kHarm + h] -= wo * sh;          // x_im
+            if (kIf) {
+                acc[kDre + h] += dd * ch;       // d_re
+                acc[kDim + h] -= de * sh;       // d_im
+            }
+        }
+        win = win_n;
+        cp = cp_n;
+        sp = sp_n;
+        a = a_n;
+        o = o_n;
+    }
+}
+
+// One warp per (frame, slot), kDftWarps of them per block, no block
+// barrier; lane i < 25 (13 without the derivative window) writes sum i.
+__global__ void __launch_bounds__(kDftWarps * 32)
+harmonic_dft_kernel(const float* __restrict__ seg,
+                    const float* __restrict__ f0, float* __restrict__ xre,
+                    float* __restrict__ xim, float* __restrict__ dre,
+                    float* __restrict__ dim, float* __restrict__ en,
+                    long long pairs, int k_slots, int w, float fs, int fold,
+                    int with_if) {
+    const int lane = threadIdx.x & 31;
+    const long long p = (long long)blockIdx.x * kDftWarps + (threadIdx.x >> 5);
+    if (p >= pairs) return;                // whole warps
+    const long long frame = p / k_slots;
+    const float* row = seg + frame * w;
     const int c = w / 2;
     const int lanes = fold ? c : w;
     // clamp as the wrapper's plain version does: the fold floor keeps every
@@ -170,11 +289,11 @@ __global__ void harmonic_dft_kernel(const float* __restrict__ seg,
     // (constants rounded once from double, as Python computes them)
     const float floor_hz = fold ? (float)(1.5 * (double)fs / (double)(c - 3))
                                 : 1.0f;
-    const float f = fmaxf(f0[(long long)frame * k_slots + slot], floor_hz);
+    const float f = fmaxf(f0[p], floor_hz);
     auto fetch = [&](int b, float& a, float& o) {
         if (fold) {
-            float r = row[c + b];
-            float l = row[c - b];
+            const float r = row[c + b];
+            const float l = row[c - b];
             a = b == 0 ? 0.5f * (r + l) : r + l;
             o = r - l;
         } else {
@@ -183,26 +302,24 @@ __global__ void harmonic_dft_kernel(const float* __restrict__ seg,
         }
     };
     float acc[kSums];
+    float s;
     if (with_if) {
-        slot_partials<true, kDftThreads>(fetch, f, fs, lanes, c, fold,
-                                         win_s, acc);
-        block_sums<kSums, kDftThreads>(acc, part, sums);
+        warp_slot<true>(fetch, f, fs, lanes, c, fold, acc);
+        s = warp_sums<kSums>(acc);
     } else {
-        slot_partials<false, kDftThreads>(fetch, f, fs, lanes, c, fold,
-                                          win_s, acc);
-        block_sums<kNoIf, kDftThreads>(acc, part, sums);
+        warp_slot<false>(fetch, f, fs, lanes, c, fold, acc);
+        s = warp_sums<kNoIf>(acc);
     }
-    if (threadIdx.x == 0) {
-        const long long fs_ = (long long)frame * k_slots + slot;
-        for (int h = 0; h < kHarm; ++h) {
-            xre[fs_ * kHarm + h] = sums[h];
-            xim[fs_ * kHarm + h] = sums[kHarm + h];
-            if (with_if) {
-                dre[fs_ * kHarm + h] = sums[kDre + h];
-                dim[fs_ * kHarm + h] = sums[kDim + h];
-            }
-        }
-        en[fs_] = sums[kEn];
+    if (lane < kHarm) {
+        xre[p * kHarm + lane] = s;
+    } else if (lane < 2 * kHarm) {
+        xim[p * kHarm + lane - kHarm] = s;
+    } else if (lane == kEn) {
+        en[p] = s;
+    } else if (with_if && lane < kDim) {
+        dre[p * kHarm + lane - kDre] = s;
+    } else if (with_if && lane < kSums) {
+        dim[p * kHarm + lane - kDim] = s;
     }
 }
 
@@ -309,10 +426,12 @@ extern "C" int tpuvc_harmonic_dft(const float* seg, const float* f0,
                                   int w, float fs, int fold, int with_if,
                                   cudaStream_t stream) {
     if (w > kMaxLanes || w < 8) return (int)cudaErrorInvalidValue;
-    long long blocks = (long long)n * k_slots;
-    if (blocks > 0) {
-        harmonic_dft_kernel<<<(unsigned)blocks, kDftThreads, 0, stream>>>(
-            seg, f0, xre, xim, dre, dim, en, k_slots, w, fs, fold, with_if);
+    const long long pairs = (long long)n * k_slots;
+    if (pairs > 0) {
+        const long long blocks = (pairs + kDftWarps - 1) / kDftWarps;
+        harmonic_dft_kernel<<<(unsigned)blocks, kDftWarps * 32, 0, stream>>>(
+            seg, f0, xre, xim, dre, dim, en, pairs, k_slots, w, fs, fold,
+            with_if);
     }
     return (int)cudaGetLastError();
 }

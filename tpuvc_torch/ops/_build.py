@@ -37,7 +37,7 @@ SIGNATURES = {
     "tpuvc_harmonic_dft": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                            _I, _P),
     "tpuvc_windowed_frames": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "tpuvc_box_smooth": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "tpuvc_box_smooth": (_P, _P, _P, _I, _I, _I, _F, _F, _P),
     "tpuvc_topk_sum": (_P, _P, _I, _I, _I, _P),
     "tpuvc_refine_score": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "tpuvc_top2_block_scans": (_P, _P, _I, _I, _P),

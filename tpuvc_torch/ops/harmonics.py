@@ -21,16 +21,20 @@ is accepted, and pass 2 at the refined f0 scores it by harmonic
 concentration times the fundamental's share of the first two harmonics.
 Empty (f0 <= 0) and rejected slots give 0.
 
-CUDA kernels (``csrc/harmonics.cu``), both on one per-slot routine:
-``harmonic_dft`` runs one block per (frame, slot) and reads
-``seg[c+b]``/``seg[c-b]`` directly; ``refine_score`` runs one block per
-frame, folds the row into shared memory once and runs both passes and
-the glue for every non-empty slot on chip, writing only refined f0 and
-score.  Each lane keeps the window in shared memory for the derivative's
-neighbour lanes and accumulates its partial sums in registers before one
-block reduction.  Bound: each row is read once (bytes), but the per-lane
-work is two accurate transcendentals and ~100 flops per slot and pass,
-so the design keeps the row read once and every intermediate on chip.
+CUDA kernels (``csrc/harmonics.cu``).  ``harmonic_dft`` runs one warp per
+(frame, slot), eight per block: lanes b = j * 32 + lane read
+``seg[c+b]``/``seg[c-b]`` directly, take one ``sincosf`` each (the
+window's cosine is the phase cosine), get the derivative window's
+neighbours from the adjacent lanes by shuffle, accumulate 25 sums in
+registers and end in one warp reduction after which lane i stores sum
+i.  ``refine_score`` runs one block per frame, folds the row into shared
+memory once and runs both passes and the glue for every non-empty slot on
+chip, writing only refined f0 and score; its lanes keep the window in
+shared memory for the derivative's neighbours and end each pass in a
+block reduction.  Bound: bytes for ``harmonic_dft`` (each row read once;
+the first design, one 256-thread block per (frame, slot), lost most of
+its time to that block's 25-sum reduction), operations for
+``refine_score`` (two passes per accepted slot).
 ``adaptive_width`` of the Pallas kernel, an arm measured slower on the
 TPU, is not ported.
 """

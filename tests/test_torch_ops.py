@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tpuvc_torch.ops import conv, d2s, events, harmonics, smooth, topk, window
+from tpuvc_torch.ops.arith import rdiv
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -177,6 +178,53 @@ def test_window_plain_matches_xla():
     np.testing.assert_allclose(seg.numpy(), np.asarray(seg_ref),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(wp.numpy(), np.asarray(wp_ref), rtol=1e-5)
+
+
+# f0 in Hz: a support that covers the whole row (h >= 512 below 46.875
+# Hz), the exact-half case (h = rint(74.5) = 74), 900 Hz and the unvoiced
+# default
+_WINDOW_F0 = [40.0, 46.0, 47.0, 322.14764404296875, 500.0, 900.0]
+
+
+def test_window_support_is_the_plain_mask():
+    """The kernel's support [W/2 - h, W/2 + h] clipped to [0, W) (window.
+    support) is the plain version's mask |col - W/2| <= rint(1.5 fs/f0),
+    for f0 from 40 to 900 Hz, the exact-half case and whole-row supports."""
+    fs, w = 16000, 1024
+    f0 = torch.cat([torch.linspace(40.0, 900.0, 2000),
+                    torch.tensor(_WINDOW_F0)])
+    lo, hi = window.support(f0, fs, w)
+    col = torch.arange(w)
+    got = (col >= lo[:, None]) & (col <= hi[:, None])
+    half_len = torch.round(rdiv(1.5 * fs, f0)).to(torch.int64)
+    mask = (col - w // 2).abs()[None, :] <= half_len[:, None]
+    assert torch.equal(got, mask)
+    special = got[-len(_WINDOW_F0):]
+    assert bool(special[:2].all()) and not bool(special[2].all())
+    assert int(hi[-3] - lo[-3]) == 2 * 74
+
+
+@pytest.mark.parametrize("n", [6, 37])
+def test_window_plain_ignores_columns_outside_support(n):
+    """The premise of K3's kernel: what lies outside a frame's support
+    does not change the plain version's output (torch.equal): it is
+    multiplied by a zero window and adds +-0 to the sums.  Columns outside
+    the support replaced by large finite values."""
+    rng = np.random.default_rng(11)
+    fs, w = 16000, 1024
+    seg = torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32))
+    f0 = torch.from_numpy(rng.uniform(40, 900, n).astype(np.float32))
+    f0[:len(_WINDOW_F0)] = torch.tensor(_WINDOW_F0[:n])
+    lo, hi = window.support(f0, fs, w)
+    col = torch.arange(w)
+    outside = (col < lo[:, None]) | (col > hi[:, None])
+    big = torch.from_numpy(rng.choice([-3e38, 3e38, 1e30], (n, w)).astype(
+        np.float32))
+    ref = window.windowed_frames_plain(seg, f0, fs)
+    got = window.windowed_frames_plain(torch.where(outside, big, seg), f0, fs)
+    assert bool(outside.any()) and not bool(outside[0].any())
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def test_box_smooth_plain_matches_xla_pallas_and_oracle():
@@ -351,6 +399,68 @@ def test_topk_sum_plain_matches_pallas_and_lax(kk):
     ref = np.sum(np.asarray(jax.lax.top_k(jnp.asarray(ps), kk)[0]), -1)
     np.testing.assert_allclose(got, ref, rtol=1e-6)
     assert topk.launches == 0
+
+
+def _topk_rows(c, seed=9):
+    """Rows of c values: uniform, the tie patterns of _tied_rows (c = 512),
+    signed zeros alone and among values, all-equal rows and rows with -inf
+    padding."""
+    rng = np.random.default_rng(seed)
+    ps = rng.uniform(0, 1, (12, c)).astype(np.float32)
+    zeros = np.where(rng.uniform(size=c) < 0.5, 0.0, -0.0).astype(np.float32)
+    ps[0] = zeros                          # only +0 and -0
+    ps[1] = np.where(rng.uniform(size=c) < 0.8, zeros, ps[1])
+    ps[2] = np.where(rng.uniform(size=c) < 0.5, zeros, -ps[2])
+    ps[3] = 0.25                           # all equal
+    ps[4] = -3.0
+    ps[5, 100:] = -np.inf                  # padding past 100 values
+    ps[6, ::3] = -np.inf
+    ps[7, :64] = 0.5                       # heavy ties
+    ps[8] = np.round(ps[8] * 4) / 4        # few distinct values
+    if c == 512:
+        ps = np.concatenate([ps, _tied_rows(n=24)])
+    return ps
+
+
+def _topk_sum_merge(ps, kk, layout):
+    """csrc/topk.cu's algorithm in torch: each of 32 lanes sorts its group
+    of 16 columns (padded with -inf) in non-increasing order; kk rounds
+    add the maximum of the lane heads to a sum started at +0, and the
+    lowest lane holding it pops its head.  ``layout`` is the kernel's float4
+    one (lane l holds 4 (l + 32 j) + e) or its scalar one (l + 32 j)."""
+    n, c = ps.shape
+    pad = torch.full((n, topk.MAX_COLS), -torch.inf)
+    pad[:, :c] = ps
+    if layout == "float4":
+        lanes = pad.reshape(n, 4, 32, 4).transpose(1, 2).reshape(n, 32, 16)
+    else:
+        lanes = pad.reshape(n, 16, 32).transpose(1, 2)
+    v = torch.sort(lanes, dim=-1, descending=True).values
+    tail = torch.full((n, 32, 1), -torch.inf)
+    acc = torch.zeros(n)
+    for _ in range(kk):
+        m = v[:, :, 0].amax(-1)
+        first = (v[:, :, 0] == m[:, None]).int().argmax(-1)
+        pop = torch.arange(32) == first[:, None]
+        v = torch.where(pop[:, :, None], torch.cat([v[:, :, 1:], tail], -1),
+                        v)
+        acc = acc + m
+    return acc
+
+
+@pytest.mark.parametrize("layout", ["float4", "scalar"])
+@pytest.mark.parametrize("kk", [1, 21, "c"])
+@pytest.mark.parametrize("c", [385, 512])
+def test_topk_sorted_lane_merge_is_bit_equal(c, kk, layout):
+    """The premise of K5's kernel: merging 32 sorted lanes by their heads
+    picks the row's values in non-increasing order, so its sum from +0 has
+    the plain version's bits (torch.equal on the int32 view: the same
+    sign of zero too), under ties, signed zeros and -inf padding."""
+    ps = torch.from_numpy(_topk_rows(c))
+    kk = c if kk == "c" else kk
+    ref = topk.topk_sum_plain(ps, kk)
+    got = _topk_sum_merge(ps, kk, layout)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 def _refine_rows(n=300, w=768, seed=2, fs=16000):
@@ -577,18 +687,33 @@ def test_harmonics_kernel_matches_plain(cuda, fold, with_if, k):
 
 
 @pytest.mark.gpu
-def test_window_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("n", [1, 301])
+def test_window_kernel_matches_plain(cuda, n):
     """rtol 1e-5 / atol 1e-6 as on the CPU (reduction order, 1-ulp cosf
-    and reciprocal differences)."""
+    and reciprocal differences).  301 frames (not a multiple of the
+    kernel's 8 per block) with f0 from 47 to 900 Hz (below ~94.5 Hz the
+    support passes 512 columns: the kernel's two-pass path) and the
+    special f0 of _WINDOW_F0 (whole-row supports, the exact half, 900 Hz);
+    one frame at each special f0.  One launch per call; rows that are not
+    whole float4s are refused."""
     rng = np.random.default_rng(7)
-    seg = torch.from_numpy(rng.standard_normal((300, 1024)).astype(
+    seg = torch.from_numpy(rng.standard_normal((301, 1024)).astype(
         np.float32))
-    f0 = torch.from_numpy(rng.uniform(47, 900, 300).astype(np.float32))
-    ref = window.windowed_frames_plain(seg, f0, 16000)
-    got = window.windowed_frames(seg.to(cuda), f0.to(cuda), 16000)
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=1e-5,
-                                   atol=1e-6)
+    f0 = torch.from_numpy(rng.uniform(47, 900, 301).astype(np.float32))
+    f0[:len(_WINDOW_F0)] = torch.tensor(_WINDOW_F0)
+    cases = ([(seg, f0)] if n == 301 else
+             [(seg[i:i + 1], f0[i:i + 1]) for i in range(len(_WINDOW_F0))])
+    for s, f in cases:
+        ref = window.windowed_frames_plain(s, f, 16000)
+        n0 = window.launches
+        got = window.windowed_frames(s.to(cuda), f.to(cuda), 16000)
+        assert window.launches == n0 + 1
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    with pytest.raises(ValueError):      # rows of 1022: not float4 rows
+        window.windowed_frames(seg[:2, :1022].contiguous().to(cuda),
+                               f0[:2].to(cuda), 16000)
 
 
 @pytest.mark.gpu
@@ -612,15 +737,28 @@ def test_smooth_kernel_matches_plain(cuda, cap, signed, n):
 
 
 @pytest.mark.gpu
-def test_topk_kernel_matches_plain(cuda):
-    """Bit-equal: the same picks added in the same order."""
-    ps = torch.from_numpy(np.concatenate([_tied_rows(), _tied_rows(4, 300)]))
-    for kk in (1, 21, 512):
+@pytest.mark.parametrize("c", [385, 512])
+def test_topk_kernel_matches_plain(cuda, c):
+    """Bit-equal (the int32 view, so the sign of zero too): the same
+    values added in the same order.  _topk_rows (ties, signed zeros,
+    all-equal rows, -inf padding) at c = 512 (float4 loads) and 385
+    (scalar loads), plus uniform rows to a count that is not a multiple of
+    the kernel's 8 per block; at c = 512 also a base that is not 16-byte
+    aligned (scalar loads).  One launch per call."""
+    rng = np.random.default_rng(c)
+    ps = torch.from_numpy(np.concatenate([
+        _topk_rows(c), rng.uniform(0, 1, (301, c)).astype(np.float32)]))
+    cases = [ps.to(cuda)]
+    if c == 512:
+        flat = torch.cat([torch.zeros(1), ps.reshape(-1)]).to(cuda)
+        cases.append(flat[1:].view(ps.shape))
+    for kk in (1, 21, c):
         ref = topk.topk_sum_plain(ps, kk)
-        n0 = topk.launches
-        got = topk.topk_sum(ps.to(cuda), kk).cpu()
-        assert topk.launches == n0 + 1
-        assert torch.equal(got, ref), kk
+        for x in cases:
+            n0 = topk.launches
+            got = topk.topk_sum(x, kk).cpu()
+            assert topk.launches == n0 + 1
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), kk
 
 
 @pytest.mark.gpu

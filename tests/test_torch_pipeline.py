@@ -439,8 +439,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     record = chip_smoke.kernels_record(kern, launches)["kernels"]
     assert [r["name"] for r in record] == list(kern)
     keys = {"name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms"}
+            "max_abs_err", "ms", "b2b_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
     assert all(keys <= set(r) and r["bound_ms"] > 0 for r in record)
     for r in record:
         assert os.path.exists(os.path.join(ROOT, r["source"]))

@@ -5,14 +5,21 @@ Replaces ``tpuvc/ops/pallas_topk.py:topk_sum_pallas`` (the Pallas
 of 512 bins.  kk rounds of an iterated max: each round adds the row
 maximum to the sum and removes one occurrence of it (the lowest column),
 so ties count with multiplicity, as a sort would count them, and the sum
-is taken in pick order.
+is taken in pick order, from +0, in non-increasing order of value.
 
-CUDA kernel (``csrc/topk.cu``): one warp per row, 16 values per lane in
-registers; each round is a shuffle max and a shuffle min over the lowest
-column holding it.  Bound: device-memory bytes (the rows are read once;
-the rounds stay in registers).  The plain version is the same iterated
-max-and-mask loop, and both add in the Pallas kernel's order, so the
-three agree bit for bit.
+CUDA kernel (``csrc/topk.cu``).  Bound: device-memory bytes (each row read
+once).  The first design ran the Pallas body round by round, rescanning
+all 16 values of every lane with their column index and running two
+5-shuffle warp reductions per round, so instruction issue bound it at 15%
+of the bytes bound.  Now each lane of the row's warp sorts its 16 values
+once (a register bitonic network), and the kk rounds merge the 32 sorted
+lanes: the warp max of the lane heads, then the lowest lane holding it
+pops its head, with no column index carried.  Premise: the maxima come
+out as the row's values in non-increasing order, the same multiset as the
+iterated max-and-mask gives; equal values are interchangeable, and +0 and
+-0 (which may come out in either order) leave a sum started at +0
+unchanged.  So the kernel, the plain version and the Pallas kernel agree
+bit for bit on finite rows with -inf padding.
 """
 
 from __future__ import annotations

@@ -30,7 +30,9 @@ non-zero and prints no ``"ok"`` line):
                plain PyTorch version (error, median ms of single calls of
                both, the kernel's mean ms over 20 launches back to back,
                the card's bound for the work, and a PyTorch library call's
-               or chain's time where one computes the same function).
+               or chain's time where one computes the same function; the
+               fused conv's product also as one float32 F.conv1d with
+               cuDNN's TF32 off and on).
   4. serve   — per path, tpuvc_torch.convert.pipeline.Converter (full-width
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
@@ -74,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FS = 16000
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM float32, outside tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 on the tensor cores, dense
 
 # name, source, Pallas function it replaces, the path whose launches the
 # record reports
@@ -104,7 +107,8 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "windowed_frames_kernel", "box_smooth_kernel",
                 "topk_sum_kernel", "refine_score_kernel",
                 "top2_block_scans_kernel", "conv_ln_lrelu_kernel",
-                "d2s_ln_lrelu_kernel")
+                "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
+                "split_tf32_kernel", "d2s_ln_lrelu_kernel")
 
 DIO_KERNELS = ("events", "scan", "harmonics", "window", "smooth", "topk")
 FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
@@ -364,10 +368,12 @@ def capture_model_inputs(state, sp, dev) -> dict:
     return calls
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> dict:
     """The least time the card takes to move nbytes and do ops float32
-    operations, in ms, which of the two bounds it, and both times."""
-    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    operations (plus tf32_ops on the tensor cores), in ms, which of the two
+    bounds it, and both times."""
+    tb = 1e3 * nbytes / HBM_BYTES_PER_S
+    to = 1e3 * (ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S)
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bytes_ms": tb, "ops_ms": to}
@@ -391,6 +397,8 @@ OPS_LN_VALUE = 8
 
 def bound_of(name: str, args, out) -> dict:
     import torch
+    from tpuvc_torch.ops.arith import rdiv
+    from tpuvc_torch.ops.harmonics import fold_floor
     from tpuvc_torch.ops.smooth import box_weights
     from tpuvc_torch.ops.window import support
     f4 = 4.0
@@ -434,23 +442,44 @@ def bound_of(name: str, args, out) -> dict:
         n, c = ps.shape
         return _bound(f4 * (n * c + n), 2 * kk * n * c)
     if name == "refine":
-        seg, f0 = args[:2]
+        # each pass over its window's support, folded lanes 0..floor(1.5
+        # fs/f + 1) (past it every term is +-0): pass 1 at the candidate,
+        # pass 2 at the refined f0, each clamped as the kernel clamps it;
+        # the count over all w/2 lanes of every pass beside it
+        seg, f0, fs, floor = args[:4]
         n, w = seg.shape
-        n1 = int((f0 > 0).sum())
-        n2 = int((out[0] > 0).sum())
-        return _bound(f4 * (n * w + 3 * f0.numel()),
-                      (w // 2) * (OPS_HARM_IF * n1 + OPS_HARM_NO_IF * n2))
+        c = w // 2
+
+        def lanes(f):
+            f = torch.clamp(f, min=fold_floor(w, fs))
+            return torch.clamp(torch.floor(rdiv(1.5 * fs, f) + 1.0) + 1.0,
+                               max=c)
+        on1, on2 = f0 > 0, out[0] > 0
+        l1 = float(lanes(f0)[on1].sum())
+        l2 = float(lanes(torch.clamp(out[0], min=floor))[on2].sum())
+        nbytes = f4 * (n * w + 3 * f0.numel())
+        return {**_bound(nbytes, OPS_HARM_IF * l1 + OPS_HARM_NO_IF * l2),
+                "bound_all_lanes_ms": _bound(
+                    nbytes, c * (OPS_HARM_IF * int(on1.sum())
+                                 + OPS_HARM_NO_IF * int(on2.sum())))[
+                                     "bound_ms"]}
     if name == "scan":
         (pairs,) = args
         return _bound(f4 * 2 * pairs.numel(),
                       OPS_SCAN_PAIR * pairs.numel() / 2)
     if name == "conv":
+        # the products on the tensor cores in split TF32 (three TF32
+        # products for each float32 one), the epilogue on float32 cores;
+        # the float32 FMA count of the first design beside it
         x, w, stride = args[0], args[1], args[5]
         k, cin, cout = w.shape
         n_out = x.shape[0] * -(-x.shape[1] // stride) * cout
-        return _bound(x.element_size() * x.numel()
-                      + f4 * (w.numel() + 3 * cout + n_out),
-                      (2 * k * cin + OPS_LN_VALUE) * n_out)
+        nbytes = (x.element_size() * x.numel()
+                  + f4 * (w.numel() + 3 * cout + n_out))
+        return {**_bound(nbytes, OPS_LN_VALUE * n_out,
+                         3 * 2 * k * cin * n_out),
+                "fp32_ops_ms": _bound(nbytes, (2 * k * cin + OPS_LN_VALUE)
+                                      * n_out)["ops_ms"]}
     if name == "d2s":
         x, c = args[0], args[1].shape[0]
         e = x.element_size()
@@ -546,6 +575,31 @@ def ladder_route(pairs):
     return out
 
 
+def conv1d_f32(tf32: bool):
+    """The layer's convolution alone as one F.conv1d in float32 (the SAME
+    padding and the channels-first layouts built beforehand), with cuDNN's
+    TF32 (its tensor-core route) on or off during the call; returns a
+    maker that takes the site's arguments and returns the call."""
+    def make(x, w, b, gamma, beta, stride, slope):
+        import torch
+        import torch.nn.functional as F
+        from tpuvc_torch.ops.conv import same_pad
+        xc = F.pad(x.float().transpose(1, 2),
+                   same_pad(x.shape[1], w.shape[0], stride)).contiguous()
+        wc = w.float().permute(2, 1, 0).contiguous()
+        bf = b.float()
+
+        def run():
+            prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                return F.conv1d(xc, wc, bf, stride=stride)
+            finally:
+                torch.backends.cudnn.allow_tf32 = prev
+        return run
+    return make
+
+
 def d2s_chain(x, gamma, beta, s, slope):
     """Depth-to-space, then F.layer_norm and F.leaky_relu in x's dtype:
     what the default decoder runs at a subpixel site."""
@@ -614,6 +668,9 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
                 "(the default encoder's layer)",
         "d2s": "chain view + F.layer_norm + F.leaky_relu in bfloat16 (the "
                "default decoder's)"}
+    # further one-call yardsticks, each timed beside library_ms
+    yardsticks = {"conv": {"library_f32_ms": conv1d_f32(False),
+                           "library_tf32_ms": conv1d_f32(True)}}
 
     sites = [  # kernel, label, captured call[, library key]
         ("events", "DIO stride 20", d["events"][0]),
@@ -650,6 +707,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
                  plain_ms=cuda_ms(lambda: plain(*args, **kwargs)),
                  library_ms=cuda_ms(lib(*args)) if lib else None,
                  library=library_label.get(name),
+                 **{k: cuda_ms(make(*args))
+                    for k, make in yardsticks.get(name, {}).items()},
                  **bound_of(name, args, got))
         del got, ref
         res.setdefault(name, []).append(r)
@@ -658,10 +717,12 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
             f"{r['b2b_ms']:.4f} ms, mean of {B2B_REPS}), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}"
-            + (f"; every column read: {r['bound_full_row_ms']:.4f} ms"
-               if "bound_full_row_ms" in r else "") + "), library "
+            + "".join(f"; {k} {r[k]:.4f}" for k in (
+                "bound_full_row_ms", "bound_all_lanes_ms", "fp32_ops_ms")
+                      if k in r) + "), library "
             + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
-               else "none"))
+               else "none")
+            + "".join(f"; {k} {r[k]:.4f}" for k in yardsticks.get(name, {})))
     del calls, d, h, m, default
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -988,6 +1049,12 @@ def profile_call(fn, out_dir: str, fname: str) -> dict:
             "device_events": len(kernels), "port_kernels": port}
 
 
+def yardsticks_of(sites) -> list:
+    """The extra library yardsticks a kernel's sites were timed against."""
+    return [k for k in sites[0] if k.startswith("library_")
+            and k != "library_ms"]
+
+
 def kernels_record(kern: dict, launches: dict) -> dict:
     """The JSON record: one entry per kernel, at its first site."""
     out = []
@@ -997,22 +1064,30 @@ def kernels_record(kern: dict, launches: dict) -> dict:
                  "replaces": rep, "launches": launches[path][name],
                  "launches_path": path}
         if name in SUMMED:
-            # every layer of one model call: times and bounds summed
-            tb = sum(r["bytes_ms"] for r in sites)
-            to = sum(r["ops_ms"] for r in sites)
+            # every layer of one model call: times summed; the layers run
+            # one after another, so the bound is the sum of each layer's
+            # own, and bound_by names the kind that holds most of it
+            by_bytes = sum(r["bound_ms"] for r in sites
+                           if r["bound_by"] == "bytes")
+            bound = sum(r["bound_ms"] for r in sites)
             entry.update(
                 max_abs_err=max(r["max_abs_err"] for r in sites),
-                ms=sum(r["ms"] for r in sites),
-                b2b_ms=sum(r["b2b_ms"] for r in sites),
-                plain_ms=sum(r["plain_ms"] for r in sites),
-                bound_ms=max(tb, to),
-                bound_by="bytes" if tb >= to else "operations",
-                library_ms=sum(r["library_ms"] for r in sites),
+                **{k: sum(r[k] for r in sites) for k in (
+                    "ms", "b2b_ms", "plain_ms", "library_ms",
+                    *yardsticks_of(sites))},
+                bound_ms=bound,
+                bound_by="bytes" if 2 * by_bytes >= bound else "operations",
                 site=f"all {len(sites)} sites of one model call")
+            if "fp32_ops_ms" in sites[0]:
+                # the first design's float32 FMA bound, counted as then
+                entry["bound_fp32_fma_ms"] = max(
+                    sum(r["bytes_ms"] for r in sites),
+                    sum(r["fp32_ops_ms"] for r in sites))
         else:
             entry.update({k: v for k, v in sites[0].items() if k in (
                 "max_abs_err", "ms", "b2b_ms", "plain_ms", "bound_ms",
-                "bound_by", "bound_full_row_ms", "library_ms", "site")})
+                "bound_by", "bound_full_row_ms", "bound_all_lanes_ms",
+                "library_ms", "site")})
         out.append(entry)
     return {"kernels": out}
 

@@ -204,6 +204,66 @@ def test_window_support_is_the_plain_mask():
     assert int(hi[-3] - lo[-3]) == 2 * 74
 
 
+def _nonfinite_wave():
+    """A 0.3 s vowel at 180 Hz (some frames unvoiced) with a NaN at sample
+    1000 and an inf at 4000: the NaN lies outside the window support
+    (+-133 samples at 180 Hz) of the frames centred 134-512 samples from
+    it, the inf inside the support of frame 50."""
+    rng = np.random.default_rng(12)
+    t = np.arange(4800) / 16000
+    x = (0.3 * np.sin(2 * np.pi * 180 * t)
+         + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+    x[1000], x[4000] = np.nan, np.inf
+    f0 = np.full(61, 180.0, np.float32)
+    f0[::9] = 0.0
+    return torch.from_numpy(x)[None], torch.from_numpy(f0)[None]
+
+
+def test_cheaptrick_nonfinite_rows_match_jax():
+    """CheapTrick on a waveform with a NaN outside some frames' window
+    support and an inf inside another's: the port's all-NaN rows are the
+    JAX package's (x * 0 is NaN there, and it enters the mean), and the
+    finite rows agree within test_cheaptrick_matches_jax's bounds (0.5 dB
+    per bin, 0.05 dB on average).  Frames whose support misses the NaN are
+    among the NaN rows."""
+    import jax.numpy as jnp
+    from tpuvc.dsp import cheaptrick as jct
+    from tpuvc_torch.dsp.cheaptrick import cheaptrick
+    x, f0 = _nonfinite_wave()
+    ref = np.asarray(jct.cheaptrick(jnp.asarray(x[0].numpy()),
+                                    jnp.asarray(f0[0].numpy())))
+    got = cheaptrick(x, f0)[0].numpy()
+    nan_rows = np.isnan(ref).all(-1)
+    assert np.array_equal(np.isnan(got).all(-1), nan_rows)
+    assert not np.isnan(got[~nan_rows]).any()
+    assert not np.isnan(ref[~nan_rows]).any()
+    centre = np.arange(len(nan_rows)) * 80
+    assert nan_rows[(np.abs(centre - 1000) > 133)
+                    & (np.abs(centre - 1000) <= 512)].all()
+    db = 10.0 * np.log10(got[~nan_rows] / ref[~nan_rows])
+    assert np.abs(db).max() < 0.5 and np.abs(db).mean() < 0.05
+
+
+@pytest.mark.parametrize("t,hop,window,n", [(4800, 80, 1024, 61),
+                                            (700, 80, 1024, 12),
+                                            (333, 5, 64, 80)])
+def test_nonfinite_frames_match_framed_signal(t, hop, window, n):
+    """ops/framing.nonfinite_frames (a prefix count over the padded
+    signal) flags exactly the frames of frame_signal that hold a NaN or
+    inf, at the frame edges too; a signal shorter than a window, and
+    frames past its end."""
+    from tpuvc_torch.ops.framing import frame_signal, nonfinite_frames
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((3, t)).astype(np.float32)
+    x[0, [0, t // 2, t - 1]] = [np.nan, np.inf, -np.inf]
+    x[1, rng.integers(0, t, 4)] = np.nan
+    x = torch.from_numpy(x)
+    want = ~torch.isfinite(frame_signal(x, hop, window, n)).all(-1)
+    got = nonfinite_frames(x, hop, window, n)
+    assert bool(want.any()) and not bool(want[2].any())
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("n", [6, 37])
 def test_window_plain_ignores_columns_outside_support(n):
     """The premise of K3's kernel: what lies outside a frame's support
@@ -574,6 +634,132 @@ def test_conv_plain_matches_pallas(stride, l, cin, cout, k):
     assert conv.launches == 0
 
 
+# the encoder's five layers at stride 3: L, Cin, Cout (K = 7)
+_ENCODER = [(513, 1, 16), (171, 16, 32), (57, 32, 64), (19, 64, 128),
+            (7, 128, 256)]
+
+
+def _conv_inputs(case, n, l, cin, cout, seed=0):
+    """x [n, l, cin] and the layer's parameters.  "uniform": x in [-1, 1),
+    w ~ N(0, 1/(7 Cin)); "tiny variance": every output channel's weights
+    one shared draw plus 5% of their own, and one bias, so a row's
+    channels spread ~20x less than their common part and the norm scales
+    the product's error up as much (much tighter rows leave float32's own
+    rounding of the sums, so amplified, too near the bound to hold a kernel
+    to it); "x 1e3": the uniform inputs scaled by 1e3."""
+    rng = np.random.default_rng(seed + cout)
+    x = rng.uniform(-1, 1, (n, l, cin)).astype(np.float32)
+    w = rng.standard_normal((7, cin, cout)) / np.sqrt(7 * cin)
+    b, g, bt = (0.1 * rng.standard_normal(cout) + o for o in (0, 1, 0))
+    if case == "tiny variance":
+        w = w[:, :, :1] + 0.05 * w
+        b = np.full(cout, 0.1)
+    elif case == "x 1e3":
+        x = x * np.float32(1e3)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 for a in (x, w, b, g, bt))
+
+
+def _tf32(v):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the bit pattern: what cvt.rna.tf32.f32 does."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _conv_ln_lrelu_split(x, w, b, g, bt, stride, slope, passes):
+    """conv_ln_lrelu_plain with the convolution's float32 operands split
+    into TF32 hi + lo: passes 3 sums lo*hi + hi*lo + hi*hi (csrc/conv.cu's
+    tensor-core route; each TF32 product is exact in float32), passes 1
+    takes hi*hi alone (plain TF32)."""
+    import torch.nn.functional as F
+
+    def conv1d(xv, wv):
+        xc = F.pad(xv.transpose(1, 2), conv.same_pad(xv.shape[1],
+                                                      wv.shape[0], stride))
+        return F.conv1d(xc, wv.permute(2, 1, 0), stride=stride)
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    y = conv1d(xh, wh)
+    if passes == 3:
+        y = conv1d(xl, wh) + conv1d(xh, wl) + y
+    y = (y + b[:, None]).transpose(1, 2)
+    y = F.layer_norm(y, y.shape[-1:], g, bt, conv.LN_EPS)
+    return F.leaky_relu(y, slope)
+
+
+@pytest.mark.parametrize("case", ["uniform", "tiny variance", "x 1e3"])
+@pytest.mark.parametrize("l,cin,cout", _ENCODER)
+def test_conv_split_tf32_matches_plain(l, cin, cout, case):
+    """The premise of K8's tensor-core route: split TF32 (three TF32
+    products per float32 one, summed in float32) through the conv,
+    LayerNorm and LeakyReLU stays within the rtol 1e-4 / atol 1e-4 that
+    the kernel is held to against conv_ln_lrelu_plain, at the encoder's
+    five layer shapes over 300 frames, on rows whose norm amplifies the
+    product's error and on inputs scaled by 1e3.  Plain TF32 (one
+    product) is printed for the record, not asserted."""
+    args = _conv_inputs(case, 300, l, cin, cout)
+    ref = conv.conv_ln_lrelu_plain(*args, 3, 0.2)
+    got = _conv_ln_lrelu_split(*args, 3, 0.2, passes=3)
+    one = _conv_ln_lrelu_split(*args, 3, 0.2, passes=1)
+    err = lambda v: float(((v - ref).abs()  # noqa: E731
+                           / (1e-4 + 1e-4 * ref.abs())).max())
+    print(f"layer L={l} Cin={cin} Cout={cout} ({case}): max |err| / "
+          f"(1e-4 + 1e-4 |ref|): split TF32 {err(got):.3f}, plain TF32 "
+          f"{err(one):.3f}; max abs err plain TF32 "
+          f"{float((one - ref).abs().max()):.3e}")
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("f0", [63.9, 71.0, 200.0, 800.0])
+def test_refine_terms_past_the_support_are_zero(f0):
+    """The premise of K6's support-only walk: each of _slot_folded's 25
+    per-lane terms (x_re, x_im, energy, d_re, d_im; with and without the
+    derivative window) is exactly +-0 at every folded lane past
+    floor(half_len), so past lane floor(half_len) + 1 too, where the
+    kernel stops.  The terms rebuilt here sum to _slot_folded's outputs
+    bit for bit (the same tensors through torch.sum), so they are its."""
+    fs, w = 16000.0, 768
+    rng = np.random.default_rng(int(f0))
+    seg = torch.from_numpy(rng.standard_normal((5, w)).astype(np.float32))
+    f = torch.full((5, 1), f0) * torch.tensor([[1.0], [1.003], [0.998],
+                                               [1.01], [0.99]])
+    f = torch.clamp(f, min=harmonics.fold_floor(w, fs))
+    e, o = harmonics._fold_eo(seg)
+    wh = e.shape[-1]
+    b = torch.arange(wh, dtype=torch.float32)[None, :]
+    half_len = torch.floor(rdiv(1.5 * fs, f) + 1.0)
+    mask = b <= half_len
+    phase = (2.0 * np.pi / (3.0 * fs)) * f * b
+    cp, sp = torch.cos(phase), torch.sin(phase)
+    zero = torch.zeros(())
+    win = torch.where(mask, 0.42 + 0.5 * cp + 0.08 * (2.0 * cp * cp - 1.0),
+                      zero)
+    em, om = torch.where(mask, e, zero), torch.where(mask, o, zero)
+    we, wo = em * win, om * win
+    col = torch.arange(wh)[None, :]
+    edge = (col == 0) | (col >= wh - 1)
+    dwin = torch.where(edge, zero, -0.5 * (torch.roll(win, -1, dims=-1)
+                                           - torch.roll(win, 1, dims=-1)))
+    de, do = em * dwin, om * dwin
+    energy = torch.where(b == 0.0, 1.0, 0.5) * (we * we + wo * wo)
+    per_harm = [[], [], [], []]            # x_re, x_im, d_re, d_im terms
+    for ch, sh in harmonics._recurrence(cp, sp, 6):
+        for i, t in enumerate((we * ch, -(wo * sh), do * ch, -(de * sh))):
+            per_harm[i].append(t)
+    ref = harmonics._slot_folded((e, o), f, fs, 6, True)
+    # -sum(v) == sum(-v) bit for bit: rounding to nearest is odd-symmetric
+    for terms, r in zip(per_harm, ref[:4]):
+        assert torch.equal(torch.stack([torch.sum(t, dim=-1)
+                                        for t in terms], dim=-1), r)
+    assert torch.equal(torch.sum(energy, dim=-1), ref[4])
+    past = b > half_len
+    assert bool(past.any(dim=1).all())
+    for t in [energy, *sum(per_harm, [])]:
+        assert len(t[past]) and bool((t[past] == 0.0).all())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bsz,l,c,s", [(4, 57, 256, 3), (2, 19, 64, 3),
                                        (3, 171, 32, 3)])
@@ -717,6 +903,26 @@ def test_window_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.gpu
+def test_cheaptrick_nonfinite_rows_match_plain(cuda):
+    """The window kernel reads only each frame's support, so CheapTrick
+    flags the frames that hold a NaN or inf from the waveform: on the card
+    the all-NaN rows are the plain version's (a NaN outside one frame's
+    support, an inf inside another's), and the finite rows agree within
+    rtol 1e-3 (cuFFT against the CPU's FFT, and the kernels' sum order,
+    through the log and exp of the lifter)."""
+    from tpuvc_torch.dsp.cheaptrick import cheaptrick
+    x, f0 = _nonfinite_wave()
+    ref = cheaptrick(x, f0)
+    got = cheaptrick(x.to(cuda), f0.to(cuda)).cpu()
+    nan_rows = torch.isnan(ref).all(-1)
+    assert bool(nan_rows.any()) and not bool(nan_rows.all())
+    assert torch.equal(torch.isnan(got).all(-1), nan_rows)
+    assert not bool(torch.isnan(got[~nan_rows]).any())
+    np.testing.assert_allclose(got[~nan_rows].numpy(),
+                               ref[~nan_rows].numpy(), rtol=1e-3)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 301])
 @pytest.mark.parametrize("signed", [False, True])
 @pytest.mark.parametrize("cap", [810.0, 1056.0])
@@ -762,11 +968,19 @@ def test_topk_kernel_matches_plain(cuda, c):
 
 
 @pytest.mark.gpu
-def test_refine_kernel_matches_plain(cuda):
-    """The block reductions sum in another order than torch.sum: the CPU
+@pytest.mark.parametrize("k_slots", [1, 3, 10])
+def test_refine_kernel_matches_plain(cuda, k_slots):
+    """The warp reductions sum in another order than torch.sum: the CPU
     test's bounds (rtol 1e-5 / atol 1e-4 Hz refined, rtol 1e-4 / atol 1e-5
-    score), and the same slots accepted."""
-    seg, f0 = (torch.from_numpy(a) for a in _refine_rows())
+    score), and the same slots accepted.  _refine_rows' mixed empty and
+    rejected slots, plus candidates at the fold floor (62.99 Hz, below the
+    63.9 Hz search floor) and at 800 Hz in each of the first three slots;
+    1, 3 and 10 slots per frame (one warp each)."""
+    seg, f0 = _refine_rows()
+    for k in range(3):
+        f0[k::13, k] = harmonics.fold_floor(768, 16000.0)
+        f0[k + 6::17, k] = 800.0
+    seg, f0 = torch.from_numpy(seg), torch.from_numpy(f0[:, :k_slots].copy())
     ref = harmonics.refine_score_plain(seg, f0, 16000, 63.9, 0.2)
     n0 = harmonics.launches_refine
     got = harmonics.refine_score(seg.to(cuda), f0.to(cuda), 16000, 63.9, 0.2)
@@ -791,20 +1005,22 @@ def test_scan_kernel_bitexact(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case,n", [("uniform", 301), ("tiny variance", 301),
+                                    ("x 1e3", 301), ("uniform", 1)])
 @pytest.mark.parametrize("stride,l,cin,cout", [
     (3, 513, 1, 16), (3, 171, 16, 32), (3, 57, 32, 64), (3, 19, 64, 128),
-    (3, 7, 128, 256), (1, 19, 8, 16)])
-def test_conv_kernel_matches_plain(cuda, stride, l, cin, cout):
-    """The encoder's five layer shapes (and a stride-1 one) against the
-    plain version with TF32 off: float32 sums of up to K*Cin = 896
-    products in another order, normalised by the row's deviation;
-    rtol 1e-4 / atol 1e-4."""
-    rng = np.random.default_rng(cout)
-    x = torch.from_numpy(rng.uniform(-1, 1, (301, l, cin)).astype(np.float32))
-    w = torch.from_numpy((rng.standard_normal((7, cin, cout))
-                          / np.sqrt(7 * cin)).astype(np.float32))
-    b, g, bt = (torch.from_numpy((0.1 * rng.standard_normal(cout) + o)
-                                 .astype(np.float32)) for o in (0, 1, 0))
+    (3, 7, 128, 256), (1, 19, 8, 16), (3, 57, 8, 64)])
+def test_conv_kernel_matches_plain(cuda, stride, l, cin, cout, case, n):
+    """The encoder's five layer shapes (layer 1 on the row-per-thread
+    route, layers 2-5 on the tensor-core route) and two with Cin = 8 (the
+    float32 FMA route) against the plain version with TF32 off: float32
+    sums of up to
+    K*Cin = 896 products in another order (split TF32 on the tensor
+    cores), normalised by the row's deviation; rtol 1e-4 / atol 1e-4.
+    _conv_inputs' cases: uniform, rows the norm amplifies ~20x, inputs
+    scaled by 1e3; 301 frames (301 * L_out rows: no multiple of any
+    route's tile of 64-256 rows) and one frame."""
+    x, w, b, g, bt = _conv_inputs(case, n, l, cin, cout)
     ref = conv.conv_ln_lrelu_plain(x, w, b, g, bt, stride, 0.2)
     n0 = conv.launches
     got = conv.conv_ln_lrelu(*(t.to(cuda) for t in (x, w, b, g, bt)), stride,

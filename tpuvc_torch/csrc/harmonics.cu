@@ -29,19 +29,30 @@
 // reduction of the sums, after which lane i holds sum i and stores it.
 //
 // refine_score replaces tpuvc/ops/pallas_harmonics.py:refine_score_pallas
-// (_refine_kernel, _refine_math).  One block per frame: the row is folded
-// into shared memory once; then, for each candidate slot with f0 > 0, pass
-// 1 (the DFT with the derivative window at the candidate), the glue of
-// _refine_math on one thread (IF-weighted refined f0 and the accept gate),
-// and, if the refinement is accepted, pass 2 (the DFT and energy at the
-// refined f0) and the harmonic-concentration score.  An empty or rejected
-// slot writes 0 without a pass, as the Pallas outputs are 0 there.  Nothing
-// of the per-harmonic sums leaves the chip.  Each pass runs slot_partials:
-// the window sits in shared memory so the derivative window -0.5 (win[b+1]
-// - win[b-1]) reads its neighbours, and block_sums finishes (warp
-// shuffles, then one warp over the partials).  Bound: operations (two
-// passes of the per-lane work per accepted slot, 393 MB read once at
-// Harvest's shapes).
+// (_refine_kernel, _refine_math).  For each frame and candidate slot with
+// f0 > 0: pass 1 (the DFT with the derivative window at the candidate), the
+// glue of _refine_math (IF-weighted refined f0 and the accept gate), and,
+// if the refinement is accepted, pass 2 (the DFT and energy at the refined
+// f0) and the harmonic-concentration score.  An empty or rejected slot
+// writes 0 without a pass, as the Pallas outputs are 0 there.  Nothing of
+// the per-harmonic sums leaves the chip.  Bound: operations (the per-lane
+// work of both passes over each slot's window support; 393 MB read once at
+// Harvest's [128032, 768]).  The first design ran one 128-thread block per
+// frame through its slots in series, at 12% of the bound: each pass wrote
+// the window to shared memory behind a barrier, took three accurate
+// transcendentals a lane, walked all 384 folded lanes, and ended in a block
+// reduction of 25 sums (shuffles, a barrier, one warp over the partials, a
+// second barrier) with the glue on one thread while the others waited.
+// This design is harmonic_dft's, applied to the merged kernel: the folded
+// row goes to shared memory once per frame, behind the block's only
+// barrier; then one warp per slot runs warp_slot (one sincosf a lane, the
+// derivative window's neighbours by shuffle) over only the blocks of 32
+// lanes that meet the window (+-1.5 periods: 31-377 of 384 lanes at 63.9-
+// 800 Hz), warp_sums, the glue on every lane from the sums gathered by
+// shuffle (the same operations in the same order on each, so the accept
+// gate is warp-uniform), then pass 2 the same way.  Empty and rejected
+// slots are warp-uniform early exits.  The glue keeps _refine_math's order
+// and clamps: harmonics added h = 0..5 in series, IEEE divisions.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,106 +70,8 @@ constexpr int kSums = kDim + kHarm;
 constexpr int kNoIf = kEn + 1;
 constexpr int kMaxLanes = 2048;
 constexpr int kDftWarps = 8;
-constexpr int kRefineThreads = 128;
+constexpr int kRefineMaxWarps = 16;
 constexpr int kRefineMaxHalf = 512;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-    return v;
-}
-
-// Block sums of acc[0, kN) into out_s (shared); ends in a barrier, so
-// out_s is visible to every thread and the caller may reuse shared memory.
-template <int kN, int kThreads>
-__device__ __forceinline__ void block_sums(const float (&acc)[kSums],
-                                           float (*part)[kSums],
-                                           float* out_s) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-        float v = warp_sum(acc[i]);
-        if (lane == 0) part[warp][i] = v;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        for (int i = 0; i < kN; ++i) {
-            float v = lane < kThreads / 32 ? part[lane][i] : 0.0f;
-            v = warp_sum(v);
-            if (lane == 0) out_s[i] = v;
-        }
-    }
-    __syncthreads();
-}
-
-// This thread's partial sums of one slot at frequency f (already clamped).
-// fetch(b, a, o) gives lane b's even/odd pair (folded) or its sample twice
-// (unfolded).  Every thread of the block calls it; win_s must be free.
-template <bool kIf, int kThreads, class Fetch>
-__device__ __forceinline__ void slot_partials(Fetch fetch, float f, float fs,
-                                              int lanes, int c, bool fold,
-                                              float* win_s,
-                                              float (&acc)[kSums]) {
-    const float half_len = floorf(1.5f * fs / f + 1.0f);
-    const float kphase =
-        (float)(2.0 * 3.14159265358979323846 / (3.0 * (double)fs));
-    for (int b = threadIdx.x; b < lanes; b += kThreads) {
-        float pos = fold ? (float)b : (float)(b - c);
-        bool m = fabsf(pos) <= half_len;
-        float cp = cosf(kphase * f * pos);
-        win_s[b] = m ? 0.42f + 0.5f * cp + 0.08f * (2.0f * cp * cp - 1.0f)
-                     : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
-    for (int b = threadIdx.x; b < lanes; b += kThreads) {
-        float pos = fold ? (float)b : (float)(b - c);
-        bool m = fabsf(pos) <= half_len;
-        float ph = kphase * f * pos;
-        float cp = cosf(ph);
-        float sp = sinf(ph);
-        float win = win_s[b];
-        float a, o;
-        fetch(b, a, o);
-        a = m ? a : 0.0f;
-        o = m ? o : 0.0f;
-        float we = a * win, wo = o * win;
-        if (fold) {
-            float h0 = b == 0 ? 1.0f : 0.5f;
-            acc[kEn] += h0 * (we * we + wo * wo);
-        } else {
-            acc[kEn] += we * we;
-        }
-        float de = 0.0f, dd = 0.0f;
-        if (kIf) {
-            bool edge = fold ? (b == 0 || b >= lanes - 1)
-                             : (b == 0 || b == lanes - 1);
-            float dwin = edge ? 0.0f : -0.5f * (win_s[b + 1] - win_s[b - 1]);
-            de = a * dwin;
-            dd = o * dwin;
-        }
-        float c1 = cp * (4.0f * cp * cp - 3.0f);
-        float s1 = sp * (3.0f - 4.0f * sp * sp);
-        float ch = c1, sh = s1;
-#pragma unroll
-        for (int h = 0; h < kHarm; ++h) {
-            if (h) {
-                float nc = ch * c1 - sh * s1;
-                float ns = sh * c1 + ch * s1;
-                ch = nc;
-                sh = ns;
-            }
-            acc[h] += we * ch;                  // x_re
-            acc[kHarm + h] -= wo * sh;          // x_im
-            if (kIf) {
-                acc[kDre + h] += dd * ch;       // d_re
-                acc[kDim + h] -= de * sh;       // d_im
-            }
-        }
-    }
-}
 
 // The warp's sums of acc[0, kN): lane i < kN returns the total of acc[i].
 // Recursive halving: at each of 5 steps a lane keeps half of its live
@@ -188,12 +101,14 @@ __device__ __forceinline__ float warp_sums(const float (&acc)[kSums]) {
 // cosine is the phase cosine); the derivative window's neighbours b +- 1
 // come from the adjacent lanes by shuffle, and at the ends of a block of 32
 // from the previous block's lane 31 (kept) and the next block's lane 0
-// (computed one block ahead, with its samples).  fetch(b, a, o) as in
-// slot_partials.
+// (computed one block ahead, with its samples).  fetch(b, a, o) gives
+// lane b's even/odd pair (folded) or its sample twice (unfolded).  The warp
+// walks the blocks of 32 that start below ``walk`` (<= lanes; the lanes
+// past it must add only +-0 to every sum).
 template <bool kIf, class Fetch>
 __device__ __forceinline__ void warp_slot(Fetch fetch, float f, float fs,
-                                          int lanes, int c, bool fold,
-                                          float (&acc)[kSums]) {
+                                          int lanes, int walk, int c,
+                                          bool fold, float (&acc)[kSums]) {
     const unsigned all = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     const float half_len = floorf(1.5f * fs / f + 1.0f);
@@ -217,10 +132,10 @@ __device__ __forceinline__ void warp_slot(Fetch fetch, float f, float fs,
     float win, cp, sp, a, o;
     at(lane, win, cp, sp, a, o);
     float prev = 0.0f;                     // win[b0 - 1]
-    for (int b0 = 0; b0 < lanes; b0 += 32) {
+    for (int b0 = 0; b0 < walk; b0 += 32) {
         const int b = b0 + lane;
         float win_n = 0.0f, cp_n = 0.0f, sp_n = 0.0f, a_n = 0.0f, o_n = 0.0f;
-        if (b0 + 32 < lanes)               // warp-uniform
+        if (b0 + 32 < walk)                // warp-uniform
             at(b + 32, win_n, cp_n, sp_n, a_n, o_n);
         const float we = a * win, wo = o * win;
         if (fold) {
@@ -304,10 +219,10 @@ harmonic_dft_kernel(const float* __restrict__ seg,
     float acc[kSums];
     float s;
     if (with_if) {
-        warp_slot<true>(fetch, f, fs, lanes, c, fold, acc);
+        warp_slot<true>(fetch, f, fs, lanes, lanes, c, fold, acc);
         s = warp_sums<kSums>(acc);
     } else {
-        warp_slot<false>(fetch, f, fs, lanes, c, fold, acc);
+        warp_slot<false>(fetch, f, fs, lanes, lanes, c, fold, acc);
         s = warp_sums<kNoIf>(acc);
     }
     if (lane < kHarm) {
@@ -323,58 +238,71 @@ harmonic_dft_kernel(const float* __restrict__ seg,
     }
 }
 
-__global__ void refine_score_kernel(const float* __restrict__ seg,
-                                    const float* __restrict__ f0,
-                                    float* __restrict__ refined_out,
-                                    float* __restrict__ score_out,
-                                    int k_slots, int w, float fs,
-                                    float floor_hz, float limit) {
+// Blocks of 32 folded lanes a pass at frequency f (clamped) walks: up to the
+// one that holds lane floor(half_len) + 1.  Past floor(half_len) the masked
+// samples are 0, so every one of the 25 per-lane terms is exactly +-0
+// (tests/test_torch_ops.py holds _slot_folded to that).
+__device__ __forceinline__ int support_walk(float f, float fs, int lanes) {
+    const float half_len = floorf(1.5f * fs / f + 1.0f);
+    const float last = fminf(half_len + 1.0f, (float)(lanes - 1));
+    return min(lanes, ((int)last / 32 + 1) * 32);
+}
+
+// One block per frame, one warp per candidate slot (slots w, w + warps, ...).
+// The folded row goes to shared memory once, behind the block's only
+// barrier; each warp then runs pass 1, the glue and pass 2 of its slot on
+// its own: every lane gathers the sums by shuffle and runs the glue, so the
+// accept decision and the refined f0 are warp-uniform without a broadcast.
+__global__ void __launch_bounds__(kRefineMaxWarps * 32)
+refine_score_kernel(const float* __restrict__ seg,
+                    const float* __restrict__ f0,
+                    float* __restrict__ refined_out,
+                    float* __restrict__ score_out, int k_slots, int w,
+                    float fs, float floor_hz, float limit) {
     __shared__ float e_s[kRefineMaxHalf];
     __shared__ float o_s[kRefineMaxHalf];
-    __shared__ float win_s[kRefineMaxHalf];
-    __shared__ float part[kRefineThreads / 32][kSums];
-    __shared__ float sums[kSums];
-    __shared__ float rf_s;
+    const unsigned all = 0xffffffffu;
     const long long frame = blockIdx.x;
     const float* row = seg + frame * w;
     const int c = w / 2;
-    for (int b = threadIdx.x; b < c; b += kRefineThreads) {
-        float r = row[c + b];
-        float l = row[c - b];
+    for (int b = threadIdx.x; b < c; b += blockDim.x) {
+        const float r = row[c + b];
+        const float l = row[c - b];
         e_s[b] = b == 0 ? 0.5f * (r + l) : r + l;
         o_s[b] = r - l;
     }
-    // (the first slot_partials barrier orders these writes before reads)
+    __syncthreads();
     auto fetch = [&](int b, float& a, float& o) {
         a = e_s[b];
         o = o_s[b];
     };
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    // constants rounded once from double, as Python computes them
     const float fold_floor = (float)(1.5 * (double)fs / (double)(c - 3));
     const float nyq = (float)((double)fs / 2.0);
     const float if_scale = (float)((double)fs / (2.0 * 3.14159265358979323846));
     const float hw_num = (float)(1.5 * (double)fs);
-    float acc[kSums];
-    for (int slot = 0; slot < k_slots; ++slot) {
+    for (int slot = threadIdx.x >> 5; slot < k_slots; slot += warps) {
         const long long out = frame * k_slots + slot;
         const float f0k = f0[out];
-        if (!(f0k > 0.0f)) {                     // block-uniform
-            if (threadIdx.x == 0) {
-                refined_out[out] = 0.0f;
-                score_out[out] = 0.0f;
-            }
-            continue;
-        }
-        // pass 1: DFT with the derivative window at the candidate
-        slot_partials<true, kRefineThreads>(fetch, fmaxf(f0k, fold_floor),
-                                            fs, c, c, true, win_s, acc);
-        block_sums<kSums, kRefineThreads>(acc, part, sums);
-        if (threadIdx.x == 0) {
+        float refined = 0.0f, score = 0.0f;
+        if (f0k > 0.0f) {                        // warp-uniform; else empty
+            // pass 1: DFT with the derivative window at the candidate
+            float acc[kSums];
+            const float f1 = fmaxf(f0k, fold_floor);
+            warp_slot<true>(fetch, f1, fs, c, support_walk(f1, fs, c), c,
+                            true, acc);
+            const float s1 = warp_sums<kSums>(acc);
             const float f0c = fmaxf(f0k, floor_hz);
             float num = 0.0f, den = 0.0f;
+#pragma unroll
             for (int h = 0; h < kHarm; ++h) {
                 const float hh = (float)(h + 1);
-                const float xr = sums[h], xi = sums[kHarm + h];
-                const float dr = sums[kDre + h], di = sums[kDim + h];
+                const float xr = __shfl_sync(all, s1, h);
+                const float xi = __shfl_sync(all, s1, kHarm + h);
+                const float dr = __shfl_sync(all, s1, kDre + h);
+                const float di = __shfl_sync(all, s1, kDim + h);
                 const float power = xr * xr + xi * xi + 1e-20f;
                 const float amp = hh * f0c < nyq ? sqrtf(power) : 0.0f;
                 const float ifs =
@@ -382,39 +310,40 @@ __global__ void refine_score_kernel(const float* __restrict__ seg,
                 num += amp * ifs / hh;
                 den += amp;
             }
-            const float refined = den > 0.0f ? num / fmaxf(den, 1e-12f)
-                                             : 0.0f;
-            const bool ok = refined > 0.0f
-                && fabsf(refined - f0k) <= limit * fmaxf(f0k, 1e-12f);
-            rf_s = ok ? fmaxf(refined, floor_hz) : 0.0f;
-            refined_out[out] = ok ? refined : 0.0f;
-            if (!ok) score_out[out] = 0.0f;
-        }
-        __syncthreads();
-        const float rf = rf_s;
-        if (rf == 0.0f) continue;                // rejected: block-uniform
-        // pass 2: DFT and energy at the refined f0
-        slot_partials<false, kRefineThreads>(fetch, fmaxf(rf, fold_floor),
-                                             fs, c, c, true, win_s, acc);
-        block_sums<kNoIf, kRefineThreads>(acc, part, sums);
-        if (threadIdx.x == 0) {
-            float amps = 0.0f, a1 = 0.0f, a2 = 0.0f;
-            for (int h = 0; h < kHarm; ++h) {
-                const float hh = (float)(h + 1);
-                const float xr = sums[h], xi = sums[kHarm + h];
-                const float power = xr * xr + xi * xi + 1e-20f;
-                const float amp = hh * rf < nyq ? sqrtf(power) : 0.0f;
-                amps += amp;
-                if (h == 0) a1 = amp;
-                if (h == 1) a2 = amp;
+            const float r1 = den > 0.0f ? num / fmaxf(den, 1e-12f) : 0.0f;
+            if (r1 > 0.0f
+                    && fabsf(r1 - f0k) <= limit * fmaxf(f0k, 1e-12f)) {
+                // accepted: pass 2, the DFT and energy at the refined f0
+                refined = r1;
+                const float rf = fmaxf(r1, floor_hz);
+                const float f2 = fmaxf(rf, fold_floor);
+                warp_slot<false>(fetch, f2, fs, c, support_walk(f2, fs, c),
+                                 c, true, acc);
+                const float s2 = warp_sums<kNoIf>(acc);
+                float amps = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+                for (int h = 0; h < kHarm; ++h) {
+                    const float hh = (float)(h + 1);
+                    const float xr = __shfl_sync(all, s2, h);
+                    const float xi = __shfl_sync(all, s2, kHarm + h);
+                    const float power = xr * xr + xi * xi + 1e-20f;
+                    const float amp = hh * rf < nyq ? sqrtf(power) : 0.0f;
+                    amps += amp;
+                    if (h == 0) a1 = amp;
+                    if (h == 1) a2 = amp;
+                }
+                const float energy = __shfl_sync(all, s2, kEn);
+                const float hw = floorf(hw_num / rf + 1.0f);
+                const float winlen = 2.0f * hw + 1.0f;
+                const float fft_size = exp2f(2.0f + ceilf(log2f(winlen)));
+                const float total = sqrtf(fft_size * energy / 2.0f + 1e-30f);
+                score = (amps / total) * (a1 / (a1 + a2 + 1e-30f));
             }
-            const float hw = floorf(hw_num / rf + 1.0f);
-            const float winlen = 2.0f * hw + 1.0f;
-            const float fft_size = exp2f(2.0f + ceilf(log2f(winlen)));
-            const float total = sqrtf(fft_size * sums[kEn] / 2.0f + 1e-30f);
-            score_out[out] = (amps / total) * (a1 / (a1 + a2 + 1e-30f));
         }
-        // the next slot's first barrier orders sums/rf_s reuse after this
+        if (lane == 0) {
+            refined_out[out] = refined;
+            score_out[out] = score;
+        }
     }
 }
 
@@ -443,7 +372,9 @@ extern "C" int tpuvc_refine_score(const float* seg, const float* f0,
     if (w > 2 * kRefineMaxHalf || w < 8 || w % 2)
         return (int)cudaErrorInvalidValue;
     if (n > 0 && k_slots > 0) {
-        refine_score_kernel<<<n, kRefineThreads, 0, stream>>>(
+        const int warps = k_slots < kRefineMaxWarps ? k_slots
+                                                    : kRefineMaxWarps;
+        refine_score_kernel<<<n, warps * 32, 0, stream>>>(
             seg, f0, refined, score, k_slots, w, fs, floor_hz, limit);
     }
     return (int)cudaGetLastError();

@@ -27,8 +27,8 @@
 //   one is written as 0.  That is exact for finite inputs: the plain
 //   version gives x * 0 - 0 * mean = ±0 there, and adds x * 0 = ±0 to its
 //   sums, which leaves them unchanged.  A NaN or inf outside the window no
-//   longer reaches the output (every frame on the path is cut from a finite
-//   waveform);
+//   longer reaches this output (dsp/cheaptrick.py makes those frames' rows
+//   NaN from the waveform, as the reference's are);
 // - a support of at most 32 * kSlots float4s (512 columns: f0 >= ~94.5 Hz
 //   at 16 kHz, and every unvoiced frame) sits in registers, lane l holding
 //   float4s qs + 32 j + l, from the load through the sums to the store.

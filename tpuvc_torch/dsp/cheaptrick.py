@@ -5,6 +5,12 @@ Port of ``tpuvc/dsp/cheaptrick.py:cheaptrick``: pitch-adaptive windowing
 normalised by the window power, a deterministic safeguard floor, DC
 correction, box smoothing of width 2 f0 / 3 (smoothing kernel), and the
 cepstral lifter.  Returns the power spectral envelope (pyworld's ``sp``).
+
+A frame that holds a NaN or inf anywhere gives an all-NaN row, as in the
+reference, whose windowing multiplies every sample by its window (x * 0 is
+NaN) before the mean.  The window kernel reads only the support, so the
+frame's flag comes from the waveform (``ops/framing.py:nonfinite_frames``)
+and reaches every bin through the window-power divisor of the spectrum.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from tpuvc_torch.dsp.constants import (CHEAPTRICK_DEFAULT_F0,
                                        SAFE_GUARD_MINIMUM)
 from tpuvc_torch.dsp.spectral import dc_correction, linear_smoothing
 from tpuvc_torch.ops.dft import cos_fwd, cos_inv, rdft_power
-from tpuvc_torch.ops.framing import frame_signal
+from tpuvc_torch.ops.framing import frame_signal, nonfinite_frames
 from tpuvc_torch.ops.window import windowed_frames
 
 
@@ -51,7 +57,9 @@ def cheaptrick(x: torch.Tensor, f0: torch.Tensor,
                          f0).reshape(-1)
     seg_raw = frame_signal(x, hop, fft_size, n).reshape(bsz * n, fft_size)
     seg, win_power = windowed_frames(seg_raw, f0_eff, fs)
-    ps = rdft_power(seg, fft_size) / win_power
+    nan_rows = torch.where(nonfinite_frames(x, hop, fft_size, n), math.nan,
+                           0.0).reshape(-1, 1)
+    ps = rdft_power(seg, fft_size) / (win_power + nan_rows)
     floor = torch.amax(ps, dim=-1, keepdim=True) * 1e-12 + SAFE_GUARD_MINIMUM
     ps = ps + floor
     ps = dc_correction(ps, f0_eff, fs, fft_size)

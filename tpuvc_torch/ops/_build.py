@@ -41,8 +41,8 @@ SIGNATURES = {
     "tpuvc_topk_sum": (_P, _P, _I, _I, _I, _P),
     "tpuvc_refine_score": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "tpuvc_top2_block_scans": (_P, _P, _I, _I, _P),
-    "tpuvc_conv_ln_lrelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _P),
+    "tpuvc_conv_ln_lrelu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _F, _P),
     "tpuvc_d2s_ln_lrelu": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
 }
 

@@ -7,11 +7,15 @@ stride s over channels-last [N, L, Cin] frames, plus bias, a LayerNorm
 over the Cout channels (epsilon 1e-6) and LeakyReLU, in float32 whatever
 the input's type.
 
-CUDA kernel (``csrc/conv.cu``): an implicit-im2col GEMM on float32 CUDA
-cores in which one CTA owns a tile of output rows and all Cout <= 256
-columns, so the norm and the activation run on its own accumulators and
-the output is written once.  It is bound by float32 operations at the
-encoder's widths (see the source).
+CUDA kernel (``csrc/conv.cu``): an implicit-im2col GEMM in which one CTA
+owns a tile of output rows and all Cout <= 256 columns, so the norm and the
+activation run on its own accumulators and the output is written once.
+Where Cin is a multiple of 16 (the encoder's layers 2-5) the products run
+on the tensor cores in split TF32 (each float32 operand as a TF32 hi plus
+a TF32 lo, three products per pair: float32 accuracy), fed by a ring of
+asynchronous copies; the first layer (Cin = 1, Cout = 16, bound by its
+bytes) runs one output row per thread, and any other shape on float32 FMA
+(see the source).
 
 The plain version is ``F.conv1d`` with Flax SAME padding, then
 ``F.layer_norm`` and ``F.leaky_relu``, in float32 (the Flax composition
@@ -87,9 +91,11 @@ def conv_ln_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        for t in (w, b, gamma, beta))
     out = torch.empty((n, -(-length // stride), cout), dtype=f,
                       device=x.device)
+    # scratch for the kernel's (hi, lo) TF32 split of the weights
+    w_pairs = torch.empty((2 * ws.numel(),), dtype=f, device=x.device)
     _build.launch("tpuvc_conv_ln_lrelu", x.device, xs.data_ptr(),
-                  ws.data_ptr(), bs.data_ptr(), gs.data_ptr(), bts.data_ptr(),
-                  out.data_ptr(), n, length, cin, cout, k, stride,
-                  float(slope), LN_EPS)
+                  ws.data_ptr(), w_pairs.data_ptr(), bs.data_ptr(),
+                  gs.data_ptr(), bts.data_ptr(), out.data_ptr(), n, length,
+                  cin, cout, k, stride, float(slope), LN_EPS)
     launches += 1
     return out

@@ -28,13 +28,13 @@ window's cosine is the phase cosine), get the derivative window's
 neighbours from the adjacent lanes by shuffle, accumulate 25 sums in
 registers and end in one warp reduction after which lane i stores sum
 i.  ``refine_score`` runs one block per frame, folds the row into shared
-memory once and runs both passes and the glue for every non-empty slot on
-chip, writing only refined f0 and score; its lanes keep the window in
-shared memory for the derivative's neighbours and end each pass in a
-block reduction.  Bound: bytes for ``harmonic_dft`` (each row read once;
-the first design, one 256-thread block per (frame, slot), lost most of
-its time to that block's 25-sum reduction), operations for
-``refine_score`` (two passes per accepted slot).
+memory once, and gives each candidate slot a warp that runs pass 1, the
+glue and pass 2 the same way over only the blocks of 32 folded lanes that
+meet the window's support (lanes past it add exactly +-0), writing only
+refined f0 and score.  Bound: bytes for ``harmonic_dft`` (each row read
+once; the first design, one 256-thread block per (frame, slot), lost most
+of its time to that block's 25-sum reduction), operations for
+``refine_score`` (both passes over each slot's support).
 ``adaptive_width`` of the Pallas kernel, an arm measured slower on the
 TPU, is not ported.
 """

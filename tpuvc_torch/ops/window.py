@@ -23,8 +23,9 @@ pass instead), writes 0 elsewhere, and one interleaved shuffle reduction
 gives every lane the three sums.  Premise: outside the support the plain
 version gives x * 0 - 0 * mean = +-0 and adds +-0 to its sums, so
 skipping those columns is exact for finite frames (a NaN or inf there no
-longer reaches the output); only the order of the sums differs (rtol 1e-5
-/ atol 1e-6).  The kernel takes rows of a multiple of 4 floats on 16-byte
+longer reaches this output: ``dsp/cheaptrick.py`` makes such frames' rows
+NaN, as the reference's are, from the waveform); only the order of the
+sums differs (rtol 1e-5 / atol 1e-6).  The kernel takes rows of a multiple of 4 floats on 16-byte
 aligned storage.
 """
 

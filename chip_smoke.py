@@ -26,7 +26,9 @@ non-zero and prints no ``"ok"`` line):
   3. kernels — one analysis per f0 method on the card at the rate phase's
                shapes and one fused model call on the
                default batch's envelopes record every kernel wrapper's
-               real inputs; each kernel then runs on them against its
+               real inputs, and one more default analysis of 16 x 4 s
+               around 80 Hz the windowing's (supports that take K3's
+               second pass); each kernel then runs on them against its
                plain PyTorch version (error, median ms of single calls of
                both, the kernel's mean ms over 20 launches back to back,
                the card's bound for the work, and a PyTorch library call's
@@ -240,12 +242,14 @@ F0_BASE = [115.0, 215.0, 135.0, 190.0, 105.0, 235.0, 125.0, 205.0, 145.0,
            225.0]
 
 
-def utterance(rng, spk: int, dur_s: float) -> np.ndarray:
-    """A vowel-like utterance of speaker ``spk``: vibrato f0, two formants
-    and a spectral tilt (tpuvc/data/synthetic.py's style)."""
+def utterance(rng, spk: int, dur_s: float,
+              f0_base: float | None = None) -> np.ndarray:
+    """A vowel-like utterance of speaker ``spk``: vibrato f0 around
+    ``f0_base`` (the speaker's F0_BASE by default), two formants and a
+    spectral tilt (tpuvc/data/synthetic.py's style)."""
     n = int(dur_s * FS)
     t = np.arange(n) / FS
-    f0b = F0_BASE[spk]
+    f0b = F0_BASE[spk] if f0_base is None else f0_base
     f0 = f0b * (1.0 + 0.03 * np.sin(2 * np.pi * 2.5 * t)
                 + 0.02 * rng.standard_normal())
     phase = 2 * np.pi * np.cumsum(f0) / FS
@@ -346,6 +350,24 @@ def capture_inputs(dev, dur_s: float, batches: dict):
     return out, sp
 
 
+# CheapTrick's window spans 3 periods: below ~94.5 Hz at 16 kHz it covers
+# more than 512 columns, and K3 takes a second pass over the frame
+TWO_PASS_F0 = 80.0
+
+
+def capture_two_pass(dev, dur_s: float, batch: int):
+    """The CheapTrick windowing call of one default analysis of ``batch``
+    utterances around a TWO_PASS_F0 base f0."""
+    from tpuvc_torch.dsp import cheaptrick, world
+    rng = np.random.default_rng(4)
+    xs = [utterance(rng, i % len(SPEAKERS), dur_s, TWO_PASS_F0)
+          for i in range(batch)]
+    calls = []
+    with spy(cheaptrick, "windowed_frames", calls):
+        world.analyze_batch(np.stack(xs), path_cfg("default"), device=dev)
+    return calls[0]
+
+
 def capture_model_inputs(state, sp, dev) -> dict:
     """kernel -> [(args, kwargs)] of the fused layers' wrapper calls in one
     encode + decode of the fused model (bf16 compute) on the frames of
@@ -380,19 +402,38 @@ def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> dict:
 
 
 # float32 operations per element, counted from each kernel's source
-# (a transcendental counts as one): events per cell of the bank (4 event
-# types: crossing test, fraction, time, sorted-pair inserts); the folded
+# (a transcendental counts as one): events per cell of the bank (a
+# difference, then per type two compares and a mask bit) and per event
+# time the kernel computes (a subtraction, the division, two additions:
+# for each block and type its first two and last two events); the folded
 # harmonic pass per half-lane with and without the derivative window;
 # the window per lane; topk per value and round; smooth per tap; the
 # block scans one top-2 combine (3 selections) per block pair; a
 # LayerNorm + LeakyReLU epilogue per value (bias, sum, centre, square-add,
 # scale, gamma, beta, select) besides the convolution's 2 K Cin per output.
-OPS_EVENTS_CELL = 57
+OPS_EVENTS_CELL = 13
+OPS_EVENT_TIME = 4
 OPS_HARM_IF = 121
 OPS_HARM_NO_IF = 91
 OPS_WINDOW_LANE = 16
 OPS_SCAN_PAIR = 3
 OPS_LN_VALUE = 8
+WINDOW_ONE_PASS_QUADS = 32 * 4     # csrc/window.cu: 32 lanes x kSlots
+
+
+def event_times(bank, stride: int) -> int:
+    """The event times K1 computes on ``bank``: per block and event type,
+    min(events, 4) (its first two and last two)."""
+    import torch
+    r, t = bank.shape
+    nb = -(-(t - 1) // stride)
+    d = bank[:, 1:] - bank[:, :-1]
+    n = 0
+    for s in (bank, -bank, d, -d):
+        m = ((s[:, :-1] > 0) & (s[:, 1:] <= 0)).to(torch.uint8)
+        m = torch.nn.functional.pad(m, (0, nb * stride - m.shape[1]))
+        n += int(m.reshape(r, nb, stride).sum(-1).clamp(max=4).sum())
+    return n
 
 
 def bound_of(name: str, args, out) -> dict:
@@ -406,7 +447,9 @@ def bound_of(name: str, args, out) -> dict:
         bank, stride = args
         r, t = bank.shape
         nb = -(-(t - 1) // stride)
-        return _bound(f4 * (r * t + r * 16 * nb), OPS_EVENTS_CELL * r * t)
+        return _bound(f4 * (r * t + r * 16 * nb),
+                      OPS_EVENTS_CELL * r * t
+                      + OPS_EVENT_TIME * event_times(bank, stride))
     if name == "harmonics":
         seg, f0 = args[:2]
         n, w = seg.shape
@@ -421,11 +464,16 @@ def bound_of(name: str, args, out) -> dict:
         n, w = seg.shape
         lo, hi = support(f0, fs, w)
         cols = int((hi - lo + 1).clamp(min=0).sum())
+        # frames whose support spans WINDOW_ONE_PASS_QUADS float4s or more
+        # take the kernel's second pass (csrc/window.cu)
+        quads = torch.where(lo <= hi, hi // 4 - lo // 4, -1)
         return {**_bound(f4 * (n * w + cols + 2 * n),
                          OPS_WINDOW_LANE * cols),
                 "bound_full_row_ms": _bound(f4 * (2 * n * w + 2 * n),
                                             OPS_WINDOW_LANE * n * w)[
-                                                "bound_ms"]}
+                                                "bound_ms"],
+                "two_pass_frames": int(
+                    (quads >= WINDOW_ONE_PASS_QUADS).sum())}
     if name == "smooth":
         ps, width, fs, fft_size, max_w = args
         n, half = ps.shape
@@ -612,11 +660,13 @@ def d2s_chain(x, gamma, beta, s, slope):
 
 
 def phase_kernels(dev, state, dur_s: float = 4.0,
-                  batches: dict | None = None) -> dict:
+                  batches: dict | None = None,
+                  two_pass_batch: int = 16) -> dict:
     """Each kernel against its plain version on the inputs the analysis
     and the fused model gave its wrapper: kernel name -> list of sites
     (the first is the one the JSON record reports, or all of them summed
-    for the fused layers)."""
+    for the fused layers).  K3 also on the frames of ``two_pass_batch``
+    utterances around TWO_PASS_F0, whose supports take its second pass."""
     import torch
     import torch.nn.functional as F
     from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
@@ -625,6 +675,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
                           "harvest": PATHS["harvest"][2]}
     calls, sp = capture_inputs(dev, dur_s, batches)
     d, h = calls["default"], calls["harvest"]
+    two_pass = capture_two_pass(dev, dur_s, two_pass_batch)
     m = capture_model_inputs(state, sp, dev)
     del sp
     default = path_model("default", state, dev).encoder.stack
@@ -677,6 +728,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
         ("events", "Harvest stride 8", h["events"][0]),
         ("harmonics", "StoneMask pass 1", d["harmonics"][0]),
         ("window", "CheapTrick", d["window"][0]),
+        ("window", "CheapTrick, two-pass support", two_pass),
         ("smooth", "CheapTrick 2f0/3, 810 Hz cap", d["smooth"][0]),
         ("smooth", "D4C f0, 1056 Hz cap", d["smooth"][1]),
         ("smooth", "D4C f0/2 signed, 810 Hz cap", d["smooth"][2]),
@@ -719,11 +771,13 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
             f"({r['bound_by']}"
             + "".join(f"; {k} {r[k]:.4f}" for k in (
                 "bound_full_row_ms", "bound_all_lanes_ms", "fp32_ops_ms")
-                      if k in r) + "), library "
+                      if k in r)
+            + (f"; {r['two_pass_frames']} of {r['shape'][0][0]} frames "
+               "two-pass" if "two_pass_frames" in r else "") + "), library "
             + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
                else "none")
             + "".join(f"; {k} {r[k]:.4f}" for k in yardsticks.get(name, {})))
-    del calls, d, h, m, default
+    del calls, d, h, m, default, two_pass
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res

@@ -12,6 +12,8 @@ run on a machine without it:
 ``python -m pytest --noconftest tests/test_torch_ops.py -m gpu``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -100,6 +102,165 @@ def test_events_plain_bitexact(case):
         for row, r in enumerate(_xla_pairs(jnp.asarray(bank[c]), stride)):
             assert np.array_equal(got[c, row, :r.shape[0]], r), (c, row)
     assert events.launches == 0          # the CPU path launched nothing
+
+
+def _nonfinite_bank(case):
+    """sin(n/3) over 161 samples with a non-finite sample at 40, or an inf
+    at 41 and 45 ("two-inf": cells 40 and 44 are then peaks whose v0 is
+    inf, in one block at strides 8 and 20); a finite row beside it."""
+    sig = np.sin(np.arange(161) / 3).astype(np.float32)
+    clean = sig.copy()
+    if case == "two-inf":
+        sig[[41, 45]] = np.inf
+    else:
+        sig[40] = {"+inf": np.inf, "-inf": -np.inf, "nan": np.nan}[case]
+    return np.stack([sig, clean])
+
+
+@pytest.mark.parametrize("stride", [8, 20])
+@pytest.mark.parametrize("case", ["+inf", "-inf", "nan", "two-inf"])
+def test_events_nonfinite_matches_xla_twin(case, stride):
+    """K1 plain == the XLA twin with NaN slots equal (np.array_equal,
+    equal_nan): an event at an infinite v0 has the time inf/inf = NaN, and
+    both take max/argmax (min/argmin) and remove one instance, so one NaN
+    in a block is the first slot and the extreme of the rest the second,
+    two or more fill both.  A NaN sample makes no event at all."""
+    import jax.numpy as jnp
+    bank = _nonfinite_bank(case)
+    got = events.event_block_pairs(torch.from_numpy(bank), stride).numpy()
+    for c in range(bank.shape[0]):
+        for row, r in enumerate(_xla_pairs(jnp.asarray(bank[c]), stride)):
+            assert np.array_equal(got[c, row, :r.shape[0]], r,
+                                  equal_nan=True), (c, row)
+    assert np.isnan(got).any() == (case != "nan")
+    assert not np.isnan(got[1]).any()
+
+
+def _events_tiled(bank, stride, tile):
+    """csrc/events.cu's decomposition rendered in torch: CTAs of ``tile``
+    blocks stage their span of the row and a 2-sample halo (zeros past T).
+    A span with every sample below 2^126 in magnitude (stride <= 32,
+    T <= 2^24) takes the fast path: each type's events as a mask per
+    block, and times computed only at the first two and last two events,
+    which are the block's sorted top-2 since a type's times never
+    decrease along the row.  Any other span takes the generic path: the
+    per-cell sorted-pair insert with NaN times counted apart."""
+    r, t = bank.shape
+    nb = events.n_blocks(t, stride)
+    out = torch.empty((r, 16, nb))
+    inf = torch.tensor(torch.inf)
+    for row in range(r):
+        for k0 in range(0, nb, tile):
+            span = torch.zeros(tile * stride + 4)
+            g0 = k0 * stride
+            n_in = max(min(t - g0, span.numel()), 0)
+            span[:n_in] = bank[row, g0:g0 + n_in]
+            kk = torch.arange(k0, min(k0 + tile, nb))
+            if (stride <= 32 and t <= 2 ** 24
+                    and not bool((span.abs() >= 2.0 ** 126).any())):
+                out[row, :, kk] = _fast_tile(span, kk - k0, kk, stride, t,
+                                             inf)
+            else:
+                for k in kk.tolist():
+                    out[row, :, k] = _generic_block(span, k - k0, k, stride, t)
+    return out
+
+
+def _type_values(span, loc):
+    """The four types' (v0, v1) at span positions ``loc`` (cell samples
+    a, b, c at loc, loc + 1, loc + 2), with their offsets."""
+    a, b, c = span[loc], span[loc + 1], span[loc + 2]
+    d0, d1 = b - a, c - b
+    return ((a, b, 0.0), (-a, -b, 0.0), (d0, d1, 0.5), (-d0, -d1, 0.5))
+
+
+def _fast_tile(span, local, kk, stride, t, inf):
+    j = torch.arange(stride)
+    loc = local[:, None] * stride + j                        # [blocks, stride]
+    cell = kk[:, None] * stride + j
+    rows = []
+    for e, (v0, v1, off) in enumerate(_type_values(span, loc)):
+        m = (v0 > 0) & (v1 <= 0) & (cell < (t - 1 if e < 2 else t - 2))
+        n = m.sum(-1)
+        first = m.int().argmax(-1)
+        second = (m & (j != first[:, None])).int().argmax(-1)
+        last = stride - 1 - m.flip(-1).int().argmax(-1)
+        rest = m & (j != last[:, None])
+        prev = stride - 1 - rest.flip(-1).int().argmax(-1)
+
+        def time(jj, ok):
+            # divide only at the chosen event cells
+            g0 = v0.gather(1, jj[:, None])[:, 0]
+            g1 = v1.gather(1, jj[:, None])[:, 0]
+            frac = torch.where(ok, g0 / torch.where(ok, g0 - g1, 1.0), 0.0)
+            return (kk * stride + jj).float() + frac + off
+
+        rows += [torch.where(n >= 1, time(last, n >= 1), -inf),
+                 torch.where(n >= 2, time(prev, n >= 2), -inf),
+                 torch.where(n >= 1, time(first, n >= 1), inf),
+                 torch.where(n >= 2, time(second, n >= 2), inf)]
+    return torch.stack(rows)
+
+
+def _generic_block(span, local, k, stride, t):
+    pairs = [[-torch.inf, -torch.inf, torch.inf, torch.inf] for _ in range(4)]
+    nans = [0] * 4
+    f32 = torch.float32
+    for j in range(stride):
+        i = k * stride + j
+        loc = torch.tensor([local * stride + j])
+        for e, (v0, v1, off) in enumerate(_type_values(span, loc)):
+            if not (bool(v0 > 0) and bool(v1 <= 0)
+                    and i < (t - 1 if e < 2 else t - 2)):
+                continue
+            tp = float(torch.tensor(float(i), dtype=f32) + v0 / (v0 - v1)
+                       + off)
+            if math.isnan(tp):
+                nans[e] += 1
+                continue
+            p = pairs[e]
+            p[1], p[0] = max(p[1], min(p[0], tp)), max(p[0], tp)
+            p[3], p[2] = min(p[3], max(p[2], tp)), min(p[2], tp)
+    for p, n in zip(pairs, nans):
+        if n >= 2:
+            p[:] = [math.nan] * 4
+        elif n == 1:
+            p[:] = [math.nan, p[0], math.nan, p[2]]
+    return torch.tensor(pairs, dtype=f32).reshape(16)
+
+
+def _events_case(case):
+    """(stride, bank [R, T] float32) of a K1 case: '<stride>-<T>x<R>'
+    speech-like rows, the ties bank, or a non-finite or oversized sample
+    in speech-like rows ('<stride>-<T>x<R>:<value>@<sample>', row 0)."""
+    if case == "ties":
+        return 8, _zero_ties()
+    spec, _, bad = case.partition(":")
+    stride, rest = spec.split("-")
+    t, r = map(int, rest.split("x"))
+    rng = np.random.default_rng(t + int(stride))
+    bank = np.stack([_speechy(rng, t) for _ in range(r)])
+    if bad:
+        value, at = bad.split("@")
+        bank[0, int(at)] = np.float32(value)
+    return int(stride), bank
+
+
+@pytest.mark.parametrize("case,tile", [
+    ("3-161x2", 4), ("8-512x3", 4), ("20-3205x2", 128), ("20-3207x2", 7),
+    ("32-1000x2", 3), ("40-1000x2", 2), ("ties", 3), ("8-640x2:inf@300", 4),
+    ("20-640x2:-inf@41", 4), ("20-640x2:3e38@100", 2)])
+def test_events_tiling_matches_plain(case, tile):
+    """The kernel's decomposition, rendered in torch (_events_tiled), equals
+    the plain version bit for bit (NaN slots equal): tile spans with their
+    halo, the clipped tail, ragged last tiles, strides 3 to 40 (40 takes
+    the generic path), and spans sent to the generic path by an inf or a
+    finite sample at or above 2^126 beside spans on the fast path."""
+    stride, bank = _events_case(case)
+    tb = torch.from_numpy(bank)
+    ref = events.event_block_pairs_plain(tb, stride).numpy()
+    got = _events_tiled(tb, stride, tile).numpy()
+    assert np.array_equal(got, ref, equal_nan=True)
 
 
 def _frames(n=23, w=1024, seed=0):
@@ -831,15 +992,39 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_events_kernel_bitexact(cuda):
-    """Bit-equal, as on the CPU: selections and the same IEEE operations."""
-    rng = np.random.default_rng(5)
-    bank = torch.from_numpy(np.stack([_speechy(rng, 3205) for _ in range(7)]))
-    ref = events.event_block_pairs_plain(bank, 20)
+@pytest.mark.parametrize("case", [
+    "3-3205x7", "8-3205x7", "20-3205x7", "ties", "20-6000x5", "20-3207x3",
+    "32-4100x3", "40-3205x3", "misaligned", "8-3205x2:inf@1000",
+    "20-640x2:3e38@100", *[f"{c}/{s}" for c in ("+inf", "-inf", "nan",
+                                                 "two-inf") for s in (8, 20)]])
+def test_events_kernel_bitexact(cuda, case):
+    """Bit-equal, as on the CPU: selections and the same IEEE operations.
+    Strides 3, 8, 20 and 32 on the fast path, 40 on the generic one; the
+    ties bank; a last tile of 44 blocks in 5 rows (20-6000); an odd T,
+    whose rows start off 16-byte alignment (scalar staging), and a
+    misaligned base; a tile sent to the generic path by an inf or by a
+    finite sample above 2^126 beside tiles on the fast path; and the
+    non-finite banks, NaN slots equal to the plain version's."""
+    if "/" in case:
+        name, stride = case.split("/")
+        stride, bank = int(stride), _nonfinite_bank(name)
+    else:
+        stride, bank = _events_case("20-3204x3" if case == "misaligned"
+                                    else case)
+    bank = torch.from_numpy(bank)
+    ref = events.event_block_pairs_plain(bank, stride)
     n0 = events.launches
-    got = events.event_block_pairs(bank.to(cuda), 20).cpu()
+    dev = bank.to(cuda)
+    if case == "misaligned":
+        dev = torch.zeros(bank.numel() + 1, device=cuda)
+        dev[1:] = bank.reshape(-1).to(cuda)
+        dev = dev[1:].view(bank.shape)
+        assert dev.data_ptr() % 16
+    got = events.event_block_pairs(dev, stride).cpu()
     assert events.launches == n0 + 1
-    assert torch.equal(got, ref)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    if not ref.isnan().any():
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu

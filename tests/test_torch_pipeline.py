@@ -413,10 +413,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     cpu = torch.device("cpu")
     state = chip_smoke.build_state()
     kern = chip_smoke.phase_kernels(cpu, state, dur_s=0.5,
-                                    batches={"default": 1, "harvest": 1})
+                                    batches={"default": 1, "harvest": 1},
+                                    two_pass_batch=1)
     assert [k for k, _, _, _ in chip_smoke.KERNELS] == list(kern)
     assert all(r["max_abs_err"] == 0.0 for v in kern.values() for r in v)
     assert len(kern["events"]) == 2 and len(kern["smooth"]) == 3
+    assert len(kern["window"]) == 2
+    assert kern["window"][0]["two_pass_frames"] == 0
+    assert kern["window"][1]["two_pass_frames"] > 0
     assert len(kern["scan"]) == 2 and len(kern["conv"]) == 5
     assert len(kern["d2s"]) == 3
     assert kern["conv"][4]["bound_by"] == "operations"

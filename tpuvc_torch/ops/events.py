@@ -9,20 +9,25 @@ fraction and an event time, and every block of ``stride`` cells keeps the
 two largest and the two smallest event times, exact under ties with
 multiplicity.
 
-CUDA kernel (``csrc/events.cu``): one thread per (row, block).  It reads
-its ``stride + 2`` samples, forms the derivative as ``next - cell`` and
-runs the sequential sorted-pair insert for 4 types x {largest, smallest}.
-The stage is bound by device-memory bytes: it reads the [rows, T] bank
-once and writes 16/stride as much; the arithmetic is a few compares per
-cell.  The simple design reads each sample up to three times (neighbour
-threads overlap by two samples, served from L1) and lets adjacent threads
-read addresses ``stride`` floats apart.  Bit-exact against the plain
-version: every value is a selection or the same IEEE operation in the
-same order (``(i + frac) + off`` and ``v0 / (v0 - v1)``), with no fused
-multiply-add to contract.
+CUDA kernel (``csrc/events.cu``), bound by device-memory bytes: it reads
+the [rows, T] bank once and writes 16/stride as much.  A CTA per (row,
+tile of 128 blocks) stages its span of the row and a 2-sample halo in
+shared memory with coalesced loads; a thread per block sets each type's
+events as bits of a mask (a subtraction and two compares per cell and
+type), then divides only at the block's first two and last two events:
+a type's event times never decrease along the row, so those are its
+sorted top-2 pairs (``csrc/events.cu`` states the conditions: a stride
+of at most 32, T at most 2^24, every sample of the span below 2^126 in
+magnitude; a CTA outside them takes the per-cell insert with the NaN rule
+below).  Bit-exact against the plain version: every value is a selection
+or the same IEEE operation in the same order (``(i + frac) + off`` and
+``v0 / (v0 - v1)``), with no fused multiply-add to contract.
 
 The plain version is the port of the XLA twin, ``tpuvc/dsp/dio.py``
-``_channel_tracks`` (its cell stage) and ``_block_top2``.
+``_channel_tracks`` (its cell stage) and ``_block_top2``, NaN policy
+included (:func:`_block_top2`); the kernel follows it, while the JAX
+package's own Pallas kernel (interpret mode) makes both slots NaN at one
+NaN time.
 
 ``top2_block_scans`` replaces ``tpuvc/ops/pallas_events.py:
 top2_block_scans``: all eight block-level scans of those pairs (per event
@@ -50,15 +55,26 @@ def n_blocks(t: int, stride: int) -> int:
 
 def _block_top2(v: torch.Tensor, stride: int, nb: int, largest: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[R, L] masked event times -> per-block sorted top-2 ([R, nb] x 2)."""
+    """[R, L] masked event times -> per-block sorted top-2 ([R, nb] x 2).
+
+    The XLA twin's formulation (``tpuvc/dsp/dio.py:_block_top2``): the
+    extreme, then the extreme of the rest after removing one instance of
+    it, so a duplicated maximum is its own runner-up.  Its NaN policy too:
+    ``amax``/``amin`` propagate a NaN time (an event whose v0 is infinite
+    gives inf/inf) and ``argmax``/``argmin`` pick it, so one NaN in a
+    block makes the first slot NaN and leaves the extreme of the others in
+    the second, two or more make both NaN.
+    """
     fill = -torch.inf if largest else torch.inf
     pad = nb * stride - v.shape[-1]
     vb = torch.nn.functional.pad(v, (0, pad), value=fill)
     vb = vb.reshape(v.shape[0], nb, stride)
-    # top-2 by value with multiplicity: a duplicated maximum is its own
-    # runner-up, as in dio._block_top2's one-hot removal of one instance
-    top = torch.topk(vb, 2, dim=-1, largest=largest, sorted=True).values
-    return top[..., 0], top[..., 1]
+    red, arg = ((torch.amax, torch.argmax) if largest
+                else (torch.amin, torch.argmin))
+    m1, am = red(vb, dim=-1), arg(vb, dim=-1)
+    lanes = torch.arange(stride, device=v.device)
+    rest = torch.where(lanes == am[..., None], fill, vb)
+    return m1, red(rest, dim=-1)
 
 
 def event_block_pairs_plain(bank: torch.Tensor, stride: int

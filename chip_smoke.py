@@ -57,6 +57,21 @@ non-zero and prints no ``"ok"`` line):
                (device time by kernel, device-busy share); ``--out DIR`` keeps
                the results as JSON there.  The fused path's model stage is
                printed beside the default path's.
+  6. train   — the training path on the card, through its entry points:
+               a synthetic VCC2016-shaped corpus (10 speakers x 8
+               utterances of 1.5 s) analysed by tpuvc_torch.cli.analyze
+               (the DIO path's kernels must launch); tpuvc_torch.cli.train
+               with configs/architecture-vawgan-vcc2016.json (full width,
+               batch 256, n_unroll 5, float32) for 20 streaming steps, then
+               resumed from its run directory to step 40 on the resident
+               path (checkpoints present, metrics finite, no hand kernel
+               launched: training takes the default route); one VAW-GAN
+               step on the card and on the CPU from the same seeded
+               parameters, batch and noise (loss dict and parameters
+               agree); a VAE resident run of 200 steps whose loss falls;
+               step times and peak memory with cuDNN's TF32 on and off
+               (informational; ``--profile`` adds a profiled VAW-GAN and
+               VAE step in each setting).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -629,7 +644,6 @@ def conv1d_f32(tf32: bool):
     TF32 (its tensor-core route) on or off during the call; returns a
     maker that takes the site's arguments and returns the call."""
     def make(x, w, b, gamma, beta, stride, slope):
-        import torch
         import torch.nn.functional as F
         from tpuvc_torch.ops.conv import same_pad
         xc = F.pad(x.float().transpose(1, 2),
@@ -638,12 +652,8 @@ def conv1d_f32(tf32: bool):
         bf = b.float()
 
         def run():
-            prev = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = tf32
-            try:
+            with cudnn_tf32(tf32):
                 return F.conv1d(xc, wc, bf, stride=stride)
-            finally:
-                torch.backends.cudnn.allow_tf32 = prev
         return run
     return make
 
@@ -1058,7 +1068,323 @@ def phase_rate(path: str, conv, card: str, dev, batch: int,
     return out
 
 
-def profile_call(fn, out_dir: str, fname: str) -> dict:
+# --- phase 6: train -------------------------------------------------------
+
+TRAIN_ARCH = "configs/architecture-vawgan-vcc2016.json"
+
+
+# the card-vs-CPU step: the loss dict within STEP_RTOL (+ STEP_ATOL), the
+# parameters under params_agree's rule with these
+STEP_RTOL, STEP_ATOL = 1e-3, 1e-5
+PARAM_FRAC, PARAM_TOL = 1e-2, 1e-2
+
+
+def params_agree(got: dict, ref: dict, grads: dict, lr: float,
+                 frac: float, tol: float) -> dict:
+    """The parameter rule for two runs of the same Adam updates: Adam's
+    first update is about lr sign(g), so an element whose gradient is near
+    0 turns on rounding and may move 2 lr the other way.  Elements whose
+    |g| in every update (``grads[name]``, one tensor per update) is at
+    least ``frac`` of its tensor's max |g| must agree within tol lr + 1e-6
+    |p|; every other element within 2 lr per update.  Raises on a breach;
+    returns the largest errors of both kinds in units of lr."""
+    import torch
+    worst = {"significant": 0.0, "rest": 0.0}
+    for n, g in got.items():
+        g = g.detach().cpu()
+        r = ref[n].detach().cpu()
+        sig = torch.ones_like(g, dtype=torch.bool)
+        for u in grads[n]:
+            u = u.cpu().abs()
+            sig &= u >= frac * u.max()
+        err = (g - r).abs()
+        if bool((err[sig] > tol * lr + 1e-6 * r[sig].abs()).any()) or bool(
+                (err > 2 * lr * len(grads[n]) + 1e-6).any()):
+            raise AssertionError(f"{n}: parameters disagree (max err "
+                                 f"{err.max().item() / lr:.3e} lr)")
+        for k, m in (("significant", sig), ("rest", ~sig)):
+            if bool(m.any()):
+                worst[k] = max(worst[k], err[m].max().item() / lr)
+    return worst
+
+
+def record_grads(opt) -> list:
+    """Every update's gradients of ``opt``'s parameters, in order."""
+    seen = []
+    opt.register_step_pre_hook(lambda o, *_: seen.append(
+        [p.grad.detach().clone() for g in o.param_groups
+         for p in g["params"]]))
+    return seen
+
+
+def named_grads(module, seen) -> dict:
+    return {n: [u[i] for u in seen]
+            for i, (n, _) in enumerate(module.named_parameters())}
+
+
+def step_ms(fn, dev, n: int) -> float:
+    """Host clock around ``n`` synchronised calls after one warm-up, per
+    call in ms."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN's TF32 (its tensor-core route for float32 convolutions) on or
+    off inside the block."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def phase_train(dev, arch_path: str = TRAIN_ARCH, n_speakers: int = 10,
+                n_utts: int = 8, dur_s: float = 1.5, steps: int = 20,
+                resident: int = 10, vae_steps: int = 200,
+                step_batch: int | None = None,
+                profile_dir: str | None = None) -> dict:
+    """Training through the port's entry points, on ``dev``:
+    make_vcc2016_corpus's synthetic corpus (its first ``n_speakers``
+    speakers, ``n_utts`` training utterances of ``dur_s`` s each) analysed
+    by cli.analyze; cli.train for ``steps`` streaming steps, then resumed
+    with ``--restore_from`` on the resident path (``--resident``) to
+    2 x ``steps``; one VAW-GAN step on the card and on the CPU from the
+    same seeded parameters, batch and noise; a VAE resident run of
+    ``vae_steps`` whose loss must fall; and the steps' times."""
+    import dataclasses
+    import tempfile
+    import torch
+    from tpuvc_torch.cli import analyze
+    from tpuvc_torch.cli import train as cli_train
+    from tpuvc_torch.data import synthetic
+    from tpuvc_torch.data.dataset import FrameDataset
+    from tpuvc_torch.data.normalizer import Tanhize
+    from tpuvc_torch.train import steps as steps_lib
+    from tpuvc_torch.train import trainer as trainer_lib
+    from tpuvc_torch.utils.config import Architecture
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    arch = Architecture.load(os.path.join(ROOT, arch_path))
+    rec: dict = {"architecture": arch_path}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        defs = dict(list(synthetic.VCC2016_SPEAKER_DEFS.items())[:n_speakers])
+        synthetic.make_corpus(corpus, n_train=n_utts, n_test=0, dur_s=dur_s,
+                              seed=0, speaker_defs=defs)
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        analyze.main(["--corpus", corpus, "--splits", "train", "--quiet",
+                      "--device", dev.type])
+        sync()
+        rec["analyze_s"] = time.perf_counter() - t0
+        rec["analyze_launches"] = read_counts()
+        missing = [k for k in DIO_KERNELS if rec["analyze_launches"][k] == 0]
+        if missing and cuda:
+            raise AssertionError(f"train corpus: cli.analyze did not launch "
+                                 f"{missing}")
+        ds = FrameDataset.from_bin_dir(corpus)
+        say(f"[6 train] corpus: {n_speakers} speakers x {n_utts} utterances "
+            f"of {dur_s:g} s, {len(ds)} frames, analysed by cli.analyze in "
+            f"{rec['analyze_s']:.3f} s; kernel launches "
+            f"{rec['analyze_launches']}")
+
+        # cli.train: streaming, then resumed on the resident path
+        resumed = []
+        real_resume = trainer_lib._BaseTrainer._resume
+
+        def resume(self, *a, **kw):
+            resumed.append(real_resume(self, *a, **kw))
+            return resumed[-1]
+
+        common = ["--architecture", os.path.join(ROOT, arch_path),
+                  "--corpus", corpus, "--logdir", os.path.join(tmp, "logs"),
+                  "--no-tensorboard", "--device", dev.type]
+        trainer_lib._BaseTrainer._resume = resume
+        try:
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            run = cli_train.main(common + ["--steps", str(steps)])
+            sync()
+            t1 = time.perf_counter()
+            cli_train.main(common + ["--restore_from", run, "--steps",
+                                     str(2 * steps), "--resident",
+                                     str(resident)])
+            sync()
+            t2 = time.perf_counter()
+        finally:
+            trainer_lib._BaseTrainer._resume = real_resume
+        rec["train_launches"] = read_counts()
+        rec["cli_streaming_s"], rec["cli_resident_s"] = t1 - t0, t2 - t1
+        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+        with open(os.path.join(run, "events", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        rec.update(resumed_at=resumed[-1], ckpts=ckpts,
+                   logged_steps=[r["step"] for r in logged],
+                   final_step=logged[-1]["step"],
+                   final_metrics={k: v for k, v in logged[-1].items()
+                                  if k not in ("step", "time")})
+        finite = all(math.isfinite(v) for r in logged for k, v in r.items())
+        if (resumed != [0, steps] or rec["final_step"] != 2 * steps
+                or ckpts != [f"{steps}.pt", f"{2 * steps}.pt"] or not finite
+                or not os.path.exists(os.path.join(run, "architecture.json"))):
+            raise AssertionError(f"cli.train: resumed at {resumed}, logged "
+                                 f"{[r['step'] for r in logged]}, "
+                                 f"checkpoints {ckpts}, finite {finite}")
+        if any(rec["train_launches"].values()):
+            raise AssertionError("training launched a hand kernel: "
+                                 f"{rec['train_launches']}")
+        say(f"[6 train] cli.train {arch.model}/{arch.trainer} ({arch_path}, "
+            f"batch {arch.training.batch_size}, n_unroll "
+            f"{arch.training.n_unroll}): {steps} streaming steps in "
+            f"{rec['cli_streaming_s']:.3f} s, resumed at step "
+            f"{resumed[-1]} and run to {rec['final_step']} with --resident "
+            f"{resident} in {rec['cli_resident_s']:.3f} s (both with "
+            f"start-up); checkpoints {ckpts}; metrics finite, last "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        rec["final_metrics"].items())
+            + f"; kernel launches {rec['train_launches']}")
+
+        # one VAW-GAN step on the card and on the CPU, same everything
+        b = step_batch or arch.training.batch_size
+        norm = Tanhize.from_etc(os.path.join(corpus, "etc"))
+        stream = ds.batches(b, seed=0, normalizer=norm)
+        xs, ys = zip(*(next(stream) for _ in range(arch.training.n_unroll
+                                                   + 1)))
+        batch = (torch.from_numpy(np.stack(xs[:-1])),
+                 torch.from_numpy(np.stack(ys[:-1])).long(),
+                 torch.from_numpy(xs[-1]), torch.from_numpy(ys[-1]).long())
+        noise = steps_lib.vawgan_noise(steps_lib.step_generator(0, 0, dev),
+                                       b, arch)
+        runs = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            st = steps_lib.init_vawgan_state(arch, 0, d)
+            seen_g, seen_d = record_grads(st.opt_g), record_grads(st.opt_d)
+            m = steps_lib.vawgan_step(
+                st, *(v.to(d) for v in batch),
+                steps_lib.VAWGANNoise(noise.z_crit.to(d), noise.gp.to(d),
+                                      noise.z_gen.to(d)))
+            runs[name] = dict(m={k: float(v) for k, v in m.items()},
+                              gen=dict(st.gen.named_parameters()),
+                              critic=dict(st.critic.named_parameters()),
+                              grads_g=named_grads(st.gen, seen_g),
+                              grads_d=named_grads(st.critic, seen_d))
+        card, cpu = runs["card"], runs["cpu"]
+        rel = {k: abs(card["m"][k] - cpu["m"][k]) / max(abs(cpu["m"][k]),
+                                                        1e-30)
+               for k in cpu["m"]}
+        bad = [k for k in cpu["m"] if abs(card["m"][k] - cpu["m"][k])
+               > STEP_RTOL * abs(cpu["m"][k]) + STEP_ATOL]
+        if bad:
+            raise AssertionError(f"VAW-GAN step, card vs CPU: {bad} differ "
+                                 f"({card['m']} vs {cpu['m']})")
+        lr = arch.training.lr
+        worst_g = params_agree(card["gen"], cpu["gen"], cpu["grads_g"], lr,
+                               PARAM_FRAC, PARAM_TOL)
+        worst_d = params_agree(card["critic"], cpu["critic"],
+                               cpu["grads_d"], lr, PARAM_FRAC, PARAM_TOL)
+        rec["card_vs_cpu"] = {"batch": b, "metrics_card": card["m"],
+                              "metrics_cpu": cpu["m"],
+                              "max_rel_err": max(rel.values()),
+                              "gen_err_lr": worst_g,
+                              "critic_err_lr": worst_d}
+        say(f"[6 train] one full VAW-GAN step (batch {b}), card vs CPU from "
+            f"the same seeded parameters, batch and noise: loss dict max "
+            f"relative error {max(rel.values()):.3e} (bound rtol "
+            f"{STEP_RTOL:g} + atol {STEP_ATOL:g}); parameters, in lr, "
+            f"generator {worst_g['significant']:.3e} where |g| >= "
+            f"{PARAM_FRAC:g} max (bound {PARAM_TOL:g}) / {worst_g['rest']:.3e}"
+            f" elsewhere (bound 2 per update), critic "
+            f"{worst_d['significant']:.3e} / {worst_d['rest']:.3e}")
+        del runs, card, cpu, st
+
+        # the VAE learns: a resident run whose logged loss falls
+        vae_arch = dataclasses.replace(arch, model="VAE",
+                                       trainer="VAETrainer")
+        vae = trainer_lib.make_trainer(vae_arch, os.path.join(tmp, "vae"),
+                                       use_tensorboard=False, device=dev)
+        data = norm.forward(ds.x)
+        n_inner = max(1, vae_steps // 20)
+        vae.train_resident(data, ds.y, vae_steps, n_inner=n_inner,
+                           log_every=n_inner, save_every=vae_steps)
+        vae.close()
+        with open(os.path.join(tmp, "vae", "events", "metrics.jsonl")) as f:
+            loss = [json.loads(line)["loss"] for line in f]
+        first, last = float(np.mean(loss[:5])), float(np.mean(loss[-5:]))
+        rec["vae"] = {"steps": vae_steps, "loss": loss, "first": first,
+                      "last": last}
+        if not last < first:
+            raise AssertionError(f"VAE loss did not fall: {loss}")
+        say(f"[6 train] VAE resident run, {vae_steps} steps ({n_inner} per "
+            f"call): mean loss of the first 5 log points {first:.4f}, of the"
+            f" last 5 {last:.4f}")
+
+        # informational times, with cuDNN's TF32 on (PyTorch's default,
+        # what cli.train runs with) and off (float32 throughout, as the
+        # comparisons run)
+        st = steps_lib.init_vawgan_state(arch, 0, dev)
+        xc, yc, xg, yg = (v.to(dev) for v in batch)
+        table = torch.as_tensor(data, device=dev)
+        labels = torch.as_tensor(ds.y, device=dev).long()
+        calls = {
+            "vawgan_step": (lambda: steps_lib.vawgan_step(
+                st, xc, yc, xg, yg, noise), 1),
+            "vawgan_resident_step": (lambda: steps_lib.vawgan_multistep(
+                st, table, labels, 10, 0), 10),
+            "vae_resident_step": (lambda: steps_lib.vae_multistep(
+                vae.state, table, labels, 10, 0), 10)}
+        times: dict = {}
+        for tf32 in (True, False):
+            tag = "tf32_on" if tf32 else "tf32_off"
+            with cudnn_tf32(tf32):
+                for name, (fn, per) in calls.items():
+                    if cuda:
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                    times.setdefault(name + "_ms", {})[tag] = step_ms(
+                        fn, dev, 5 if per == 1 else 2) / per
+                    times.setdefault(name + "_peak_gib", {})[tag] = (
+                        torch.cuda.max_memory_allocated() / 2 ** 30
+                        if cuda else 0.0)
+                if profile_dir and cuda:
+                    for name in ("vawgan_step", "vae_resident_step"):
+                        fn = (calls[name][0] if name == "vawgan_step" else
+                              lambda: steps_lib.vae_multistep(
+                                  vae.state, table, labels, 1, 0))
+                        times.setdefault("profile", {})[
+                            f"{name}_{tag}"] = profile_call(
+                                fn, profile_dir,
+                                f"train_{name}_{tag}_profile.txt", "6 train")
+        rec["times"] = times
+        for name in calls:
+            say(f"[6 train] {name.replace('_', ' ')} (informational; "
+                "synchronised host clock, device batches): "
+                + "; ".join(
+                    f"cuDNN TF32 {tag[5:]} {times[name + '_ms'][tag]:.2f} ms,"
+                    f" peak device memory "
+                    f"{times[name + '_peak_gib'][tag]:.2f} GiB"
+                    for tag in ("tf32_on", "tf32_off")))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[6 train] phase 6 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def profile_call(fn, out_dir: str, fname: str,
+                 phase: str = "5 rate") -> dict:
     """torch.profiler over one call: device time by kernel (table in
     out_dir/fname), launches, the device-busy share of the call's wall
     time (kernels of one stream do not overlap), and the port's own
@@ -1076,7 +1402,7 @@ def profile_call(fn, out_dir: str, fname: str) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.device_time_total for e in kernels) / 1e6
     if not kernels:
-        say("[5 rate] profile: the profiler saw no device events; device "
+        say(f"[{phase}] profile: the profiler saw no device events; device "
             "time by kernel not measured")
         return {"wall_s": wall, "device_busy_s": None, "device_events": 0}
     avg = prof.key_averages()
@@ -1092,10 +1418,10 @@ def profile_call(fn, out_dir: str, fname: str) -> dict:
     path = os.path.join(out_dir, fname)
     with open(path, "w") as f:
         f.write(table)
-    say(f"[5 rate] profile: wall {wall:.4f} s (profiler on), device busy "
+    say(f"[{phase}] profile: wall {wall:.4f} s (profiler on), device busy "
         f"{busy_s:.4f} s = {100 * busy_s / wall:.1f}% over {len(kernels)} "
         f"device events; table in {path}")
-    say("[5 rate] profile: the port's kernels, device time per launch: "
+    say(f"[{phase}] profile: the port's kernels, device time per launch: "
         + ", ".join(f"{fn} {v['launches']} x "
                     f"{v['device_ms'] / max(v['launches'], 1):.4f} ms"
                     for fn, v in port.items()))
@@ -1180,12 +1506,14 @@ def main() -> int:
     say(f"[5 rate] model stage (encode + decode) at batch "
         f"{PATHS['fused'][2]} x 4 s: default {model_s['default']:.4f} s, "
         f"fused {model_s['fused']:.4f} s")
+    train = phase_train(dev, profile_dir=args.out if args.profile else None)
+    say(f"[6 train] card: {smi}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
-                       "rate": rates}, f, indent=1)
+                       "rate": rates, "train": train}, f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))
     say(json.dumps({"ok": True, "device": {

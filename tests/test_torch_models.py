@@ -135,6 +135,50 @@ def test_seeded_init_params():
     assert out.shape == (2, 513) and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("module", ["generator", "critic"])
+def test_seeded_init_draws_flax_distributions(module):
+    """init_params / init_critic_params at full width draw each tensor from
+    Flax's initializer, held against one Flax init_params of the VAW-GAN:
+    conv and dense kernels from lecun_normal (truncated at 2 sigma, sigma =
+    1/sqrt(fan_in)/0.87962566), so max |w| <= that truncation point; the
+    embedding tables from an untruncated normal of std 1/sqrt(128), so
+    values beyond 2 sigma occur; biases 0, LayerNorm scales 1.  Each
+    tensor's std is within 5% of Flax's where the tensor holds 3600
+    elements or more; a smaller tensor's two sample stds differ by
+    sampling alone by about 1/sqrt(n) of the std (9.4% at 112), so there
+    the bound is three such standard errors."""
+    from tpuvc.models.vae import init_params, make_model
+    arch = Architecture()
+    tree = jax.device_get(init_params(make_model(arch), arch,
+                                      jax.random.PRNGKey(0)))
+    parch = port_config.Architecture()
+    g = torch.Generator().manual_seed(0)
+    if module == "generator":
+        sd = port_params.init_params(parch, g, device="cpu")
+        ref = port_params.from_flax(tree, parch)
+    else:
+        sd = port_params.init_critic_params(parch, g, device="cpu")
+        ref = port_params.critic_from_flax(tree, parch)
+    assert set(sd) == set(ref)
+    for k, w in sd.items():
+        r = ref[k]
+        assert w.shape == r.shape, k
+        if k.endswith("bias") or "norm" in k:
+            assert torch.equal(w, r), k
+            continue
+        n = w.numel()
+        tol = max(0.05, 3.0 / np.sqrt(n))
+        assert abs(w.std().item() / r.std().item() - 1.0) <= tol, (
+            k, w.std().item(), r.std().item())
+        if k.endswith("embed"):
+            sigma = 1.0 / np.sqrt(w.shape[1])
+            assert (w.abs() > 2 * sigma).any() and (r.abs() > 2 * sigma).any()
+        else:
+            cut = 2.0 / np.sqrt(w[0].numel()) / 0.87962566103423978
+            assert w.abs().max().item() <= cut, k
+            assert r.abs().max().item() <= cut * (1 + 1e-6), k
+
+
 def test_unknown_kernel_switch_is_refused():
     """conv_impl and d2s_impl take "xla" or "pallas", nothing else."""
     with pytest.raises(ValueError, match="conv_impl"):

@@ -357,7 +357,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 30
+    # 60 modules since the training path (train/ is 6 of them): a missing
+    # package falls below the bound
+    assert int(out.stdout.split()[0]) >= 55
 
 
 def test_chip_smoke_refuses_the_cpu(tmp_path):

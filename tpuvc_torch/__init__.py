@@ -12,14 +12,18 @@ sub-package names so each module's counterpart is easy to find:
   dsp/      the WORLD analysis (DIO, StoneMask, Harvest, CheapTrick, D4C)
             and synthesis, with ``dsp/world.py`` as its entry point, and the
             port's copy of the DSP constants
-  models/   the VAW-GAN encoder/decoder (inference; both kernel routes of
-            the architecture) and its parameters
+  models/   the VAW-GAN encoder/decoder (both kernel routes of the
+            architecture), its critic, the losses and the parameters
   convert/  the batched converter (the main path), f0 statistics and the
             streaming converters
-  data/, cli/  corpus analysis (``python -m tpuvc_torch.cli.analyze``) and
-            the Tanhize normalizer
+  train/    the VAE and VAW-GAN training steps, trainers (streaming and
+            device-resident), checkpoints and metrics
+  data/, cli/  corpus analysis (``python -m tpuvc_torch.cli.analyze``),
+            training (``python -m tpuvc_torch.cli.train``), the frame
+            dataset, the synthetic corpus and the Tanhize normalizer
   io/, utils/  WAV I/O and resampling, the .bin records and the corpus
-            layout, the architecture record, the device default
+            layout, the architecture record, the device default, run
+            directories, spectrogram images and the profiler hook
 
 It imports ``torch`` and never ``jax`` or the ``tpuvc`` package.  Its
 entry points run on the CUDA card unless the caller passes

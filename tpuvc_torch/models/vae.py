@@ -1,13 +1,18 @@
-"""The speaker-conditioned VAW-GAN's encoder and decoder, for inference.
+"""The speaker-conditioned VAE, its VAW-GAN critic and their forwards.
 
 Port of ``tpuvc/models/vae.py`` (``ConvStack``, ``Encoder``, ``Decoder``,
-``VAWGAN.encode``/``decode``).  Activations stay channels-last [B, L, C]
-between layers, as in the Flax model, so the encoder's flatten and the
-decoder's depth-to-space are the same reshapes; each convolution
-transposes to PyTorch's [B, C, L] around ``F.conv1d``.  Flax conventions
-kept: ``padding="SAME"`` (total (out-1)*s + k - L, low half first),
-LayerNorm epsilon 1e-6.  Parameters are float32; ``dtype`` (bfloat16 on the
-card) is the compute type.  The critic and training come later.
+``Critic``, ``CVAE``, ``VAWGAN``, ``make_model``).  Activations stay
+channels-last [B, L, C] between layers, as in the Flax model, so the
+encoder's flatten and the decoder's depth-to-space are the same reshapes;
+each convolution transposes to PyTorch's [B, C, L] around ``F.conv1d``.
+Flax conventions kept: ``padding="SAME"`` (total (out-1)*s + k - L, low
+half first), LayerNorm epsilon 1e-6.  Parameters are float32; ``dtype``
+(bfloat16 on the card) is the compute type.
+
+``VAWGAN`` (and ``CVAE``) hold the encoder and decoder only, the generator
+half the converter serves; the ``Critic`` is a module of its own with its
+own state dict.  A trainer holds both, each with its own optimizer: the
+Flax model's ``split_gan_params`` made structural.
 
 The architecture's two kernel switches pick routes, not parameters (the
 state dict is the same for both):
@@ -24,11 +29,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuvc_torch.models import losses
 from tpuvc_torch.ops.conv import LN_EPS, conv_ln_lrelu, same_pad
 from tpuvc_torch.ops.d2s import d2s_ln_lrelu
 from tpuvc_torch.utils.config import Architecture, NetSpec
 
 IMPLS = ("xla", "pallas")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _check_impls(arch: Architecture) -> None:
+    for field in ("conv_impl", "d2s_impl"):
+        if getattr(arch, field) not in IMPLS:
+            raise ValueError(f"unknown {field} {getattr(arch, field)!r}; "
+                             f"expected one of {IMPLS}")
 
 
 class Conv(nn.Module):
@@ -175,19 +190,51 @@ class Decoder(nn.Module):
         return out.float()
 
 
-class VAWGAN(nn.Module):
-    """Inference half of the VAW-GAN: ``encode`` and ``decode``."""
+class Critic(nn.Module):
+    """Wasserstein critic x [B, 513] (and y [B]) -> score [B], float32.
+
+    A conv stack over ``arch.discriminator``, then a dense score.  With
+    ``arch.d_conditional`` (the default) the speaker enters as the
+    projection term <project(h), embed(y)> (a cGAN projection critic);
+    without y the score is the unconditioned one, as in the Flax model.
+    ``conv_impl="pallas"`` runs the stack's layers fused, as the encoder's.
+    """
 
     def __init__(self, arch: Architecture):
         super().__init__()
-        for field in ("conv_impl", "d2s_impl"):
-            if getattr(arch, field) not in IMPLS:
-                raise ValueError(f"unknown {field} "
-                                 f"{getattr(arch, field)!r}; expected one "
-                                 f"of {IMPLS}")
+        _check_impls(arch)
+        self.dtype = _DTYPES[arch.compute_dtype]
+        self.conditional = arch.d_conditional
+        self.stack = ConvStack(arch.discriminator, 1, arch.lrelu_slope,
+                               fused=arch.conv_impl == "pallas")
+        flat = (_stack_len(arch.x_dim, arch.discriminator)
+                * arch.discriminator.output[-1])
+        self.score = Dense(flat, 1)
+        if self.conditional:
+            self.project = Dense(flat, arch.y_emb_dim)
+            self.embed = nn.Parameter(torch.empty(arch.y_dim,
+                                                  arch.y_emb_dim))
+
+    def forward(self, x: torch.Tensor,
+                y: torch.Tensor | None = None) -> torch.Tensor:
+        h = self.stack(x[..., None].to(self.dtype))
+        h = h.reshape(h.shape[0], -1).to(self.dtype)
+        score = self.score(h)[..., 0]
+        if self.conditional and y is not None:
+            emb = self.embed.to(self.dtype)[y]
+            score = score + torch.sum(self.project(h) * emb, dim=-1)
+        return score.float()
+
+
+class CVAE(nn.Module):
+    """The speaker-conditioned VAE (the reference model "VAE"): ``encode``,
+    ``decode``, the training forward and its loss."""
+
+    def __init__(self, arch: Architecture):
+        super().__init__()
+        _check_impls(arch)
         self.arch = arch
-        self.dtype = {"float32": torch.float32,
-                      "bfloat16": torch.bfloat16}[arch.compute_dtype]
+        self.dtype = _DTYPES[arch.compute_dtype]
         self.encoder = Encoder(arch)
         self.decoder = Decoder(arch)
 
@@ -196,3 +243,39 @@ class VAWGAN(nn.Module):
 
     def decode(self, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return self.decoder(z, y, self.dtype)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                eps: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Encode, sample z = mu + eps e^(lv/2) with the given noise
+        ``eps`` [B, z_dim], decode: ``z_mu, z_lv, z, xh``."""
+        mu, lv = self.encode(x)
+        z = losses.reparameterize(mu, lv, eps)
+        return {"z_mu": mu, "z_lv": lv, "z": z, "xh": self.decode(z, y)}
+
+    def loss(self, x: torch.Tensor, y: torch.Tensor, eps: torch.Tensor):
+        """The reference's ``model.loss()``: ({D_KL, logP, loss}, forward
+        outputs)."""
+        out = self(x, y, eps)
+        kld = losses.gaussian_kld(out["z_mu"], out["z_lv"])
+        logp = losses.gaussian_log_density(x, out["xh"])
+        return {"D_KL": kld, "logP": logp, "loss": kld - logp}, out
+
+
+class VAWGAN(CVAE):
+    """The VAW-GAN's generator (encoder + decoder; the reference model
+    "VAWGAN").  Its ``Critic`` is a module of its own."""
+
+
+def make_model(arch: Architecture) -> CVAE:
+    """The generator module of ``arch.model`` ("VAE" or "VAWGAN")."""
+    registry = {"VAE": CVAE, "VAWGAN": VAWGAN}
+    try:
+        cls = registry[arch.model]
+    except KeyError as e:
+        raise KeyError(f"unknown model {arch.model!r}; "
+                       f"known: {sorted(registry)}") from e
+    if arch.output_activation not in ("tanh", "linear"):
+        raise ValueError(f"unknown output_activation "
+                         f"{arch.output_activation!r}; "
+                         "expected 'tanh' | 'linear'")
+    return cls(arch)

@@ -1,0 +1,259 @@
+"""Trainers driving the training steps (reference trainer/{vae,vawgan}.py).
+
+Port of ``tpuvc/train/trainer.py`` without its ``mesh``: one device.  A
+trainer owns the training state, a checkpointer with auto-resume and the
+metrics writer.  ``train`` feeds host batches one step at a time;
+``train_resident`` uploads the frame table once and runs ``n_inner`` steps
+per call with minibatches drawn on the device.  Metrics are read back to
+the host only at log points, checkpoints are written at save points and at
+the end.  The default device is the CUDA card; a trainer raises without one
+unless given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import os
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from tpuvc_torch.train import steps as steps_lib
+from tpuvc_torch.train.checkpoint import Checkpointer
+from tpuvc_torch.train.summaries import MetricsWriter
+from tpuvc_torch.utils.config import Architecture
+from tpuvc_torch.utils.device import resolve
+
+
+def _table_fingerprint(a: np.ndarray) -> tuple:
+    """O(1) identity for a host frame table: object id + shape/dtype + a
+    1024-element strided value probe.  Catches whole-table in-place
+    mutation (realistic edits like re-normalization touch essentially
+    every element) without hashing the full table.  A sparse in-place edit
+    (a few rows of a huge table) can miss every probe: treat resident
+    tables as immutable, or pass a new array after editing.  The id() is
+    only sound while the caller's array stays alive; train_resident keeps
+    a strong reference to it for that reason."""
+    obj_id = id(a)
+    a = np.asarray(a)
+    flat = a.reshape(-1)
+    idx = np.linspace(0, max(flat.size - 1, 0),
+                      num=min(1024, flat.size)).astype(np.int64)
+    return (obj_id, a.shape, str(a.dtype), flat[idx].tobytes())
+
+
+class _BaseTrainer:
+    def __init__(self, arch: Architecture, run_dir: str, seed: int = 0,
+                 use_tensorboard: bool = True,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve(device)
+        self.arch = arch
+        self.run_dir = run_dir
+        self.seed = seed
+        self.writer = MetricsWriter(os.path.join(run_dir, "events"),
+                                    use_tensorboard=use_tensorboard)
+        self.ckpt = Checkpointer(os.path.join(run_dir, "ckpt"))
+        self.state: Any = None
+        # the device copy of the resident table, keyed by the host arrays'
+        # identity plus a content probe (identity alone misses an in-place
+        # edit of the same array, which would leave the copy stale)
+        self._resident_key: Any = None
+        self._resident_src: Any = None   # strong refs: keep id() sound
+        self._resident_dev: Any = None
+
+    @property
+    def model(self):
+        """The generator: encoder + decoder."""
+        raise NotImplementedError
+
+    def _resume(self, batches: Iterator | None = None,
+                batches_per_step: int = 1) -> int:
+        step = self.ckpt.restore_latest(self.state) or 0
+        if step and batches is not None:
+            # continue the input stream where the checkpoint left off;
+            # BatchStream.skip advances without gathering, other
+            # iterators are drained
+            n = step * batches_per_step
+            if hasattr(batches, "skip"):
+                batches.skip(n)
+            else:
+                next(itertools.islice(batches, n - 1, n), None)
+        return step
+
+    def _to_device(self, x, y) -> tuple[torch.Tensor, torch.Tensor]:
+        return (torch.as_tensor(x, dtype=torch.float32, device=self.device),
+                torch.as_tensor(y, device=self.device).long())
+
+    def _log_spectrograms(self, step: int, x, y) -> None:
+        """Real vs reconstructed frames as images (reference util/image.py
+        tf.summary.image thumbnails): one forward without gradients."""
+        try:
+            x, y = self._to_device(x[:64], y[:64])
+            g = torch.Generator(device=self.device).manual_seed(0)
+            with torch.no_grad():
+                xh = self.model(x, y, steps_lib.vae_noise(
+                    g, x.shape[0], self.arch))["xh"]
+            self.writer.spectrogram(step, "x_real", x.cpu().numpy(),
+                                    log_input=False)
+            self.writer.spectrogram(step, "x_recon", xh.cpu().numpy(),
+                                    log_input=False)
+        except Exception:
+            # summaries must never take down training, but a silent
+            # failure would hide forever: warn once per run
+            if not getattr(self, "_spectrogram_warned", False):
+                self._spectrogram_warned = True
+                logging.getLogger(__name__).warning(
+                    "spectrogram summaries failed at step %d; suppressing "
+                    "further attempts' errors", step, exc_info=True)
+
+    def close(self):
+        self.ckpt.wait()
+        self.writer.close()
+
+    def _multistep(self, data: torch.Tensor, labels: torch.Tensor,
+                   n_inner: int) -> dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def train_resident(self, data: np.ndarray, labels: np.ndarray,
+                       total_steps: int, n_inner: int = 50,
+                       log_every: int | None = None,
+                       save_every: int | None = None) -> dict[str, float]:
+        """Device-resident path: upload the frame table once, run n_inner
+        optimizer steps per call (train/steps.py ``*_multistep``) with
+        minibatches drawn on the device, uniform with replacement.
+        Checkpoints and metrics land on call boundaries."""
+        t = self.arch.training
+        log_every = max(1, (log_every or t.summary_freq) // n_inner)
+        save_every = max(1, (save_every or t.save_freq) // n_inner)
+        start = self._resume()
+        remaining = max(0, int(total_steps) - start)
+        if remaining == 0:
+            # already at (or past) total_steps: run no step, as the
+            # per-step trainer does
+            self.ckpt.wait()
+            return {}
+        key = (_table_fingerprint(data), _table_fingerprint(labels))
+        if self._resident_key != key:
+            self._resident_key = key
+            self._resident_src = (data, labels)
+            # copies (on the CPU too: no view of the caller's array)
+            self._resident_dev = (
+                torch.tensor(data, dtype=torch.float32, device=self.device),
+                torch.tensor(labels, dtype=torch.long, device=self.device))
+        data_d, labels_d = self._resident_dev
+        # full n_inner calls plus one short remainder call, so the last
+        # checkpoint lands exactly on total_steps
+        n_full, rem = divmod(remaining, n_inner)
+        plan = [n_inner] * n_full + ([rem] if rem else [])
+        metrics = {}
+        for d, n in enumerate(plan):
+            m = self._multistep(data_d, labels_d, n)
+            step = self.state.step
+            last = d + 1 == len(plan)
+            if (d + 1) % log_every == 0 or last:
+                metrics = {k: float(v) for k, v in m.items()}
+                self.writer.scalars(step, metrics)
+            if (d + 1) % save_every == 0 or last:
+                # the reference's one visual, at save boundaries only: a
+                # fixed slice of the table, one forward
+                self._log_spectrograms(step, data[:64], labels[:64])
+                self.ckpt.save(step, self.state)
+        self.ckpt.wait()
+        return metrics
+
+
+class VAETrainer(_BaseTrainer):
+    """Plain conditional-VAE training (reference VAETrainer)."""
+
+    def __init__(self, arch: Architecture, run_dir: str, **kw):
+        super().__init__(arch, run_dir, **kw)
+        self.state = steps_lib.init_vae_state(arch, self.seed, self.device)
+
+    @property
+    def model(self):
+        return self.state.model
+
+    def _multistep(self, data, labels, n_inner):
+        return steps_lib.vae_multistep(self.state, data, labels, n_inner,
+                                       self.seed)
+
+    def train(self, batches: Iterator[tuple[np.ndarray, np.ndarray]],
+              total_steps: int, log_every: int | None = None,
+              save_every: int | None = None) -> dict[str, float]:
+        t = self.arch.training
+        log_every = log_every or t.summary_freq
+        save_every = save_every or t.save_freq
+        start = self._resume(batches, batches_per_step=1)
+        metrics = {}
+        for step in range(start, total_steps):
+            x, y = self._to_device(*next(batches))
+            g = steps_lib.step_generator(self.seed, step, self.device)
+            m = steps_lib.vae_step(self.state, x, y, steps_lib.vae_noise(
+                g, x.shape[0], self.arch))
+            if (step + 1) % log_every == 0 or step + 1 == total_steps:
+                metrics = {k: float(v) for k, v in m.items()}
+                self.writer.scalars(step + 1, metrics)
+                self._log_spectrograms(step + 1, x, y)
+            if (step + 1) % save_every == 0 or step + 1 == total_steps:
+                self.ckpt.save(step + 1, self.state)
+        self.ckpt.wait()
+        return metrics
+
+
+class VAWGANTrainer(_BaseTrainer):
+    """VAE + Wasserstein critic with n_unroll critic updates per generator
+    update (reference VAWGANTrainer)."""
+
+    def __init__(self, arch: Architecture, run_dir: str, **kw):
+        super().__init__(arch, run_dir, **kw)
+        self.state = steps_lib.init_vawgan_state(arch, self.seed,
+                                                 self.device)
+
+    @property
+    def model(self):
+        return self.state.gen
+
+    def _multistep(self, data, labels, n_inner):
+        return steps_lib.vawgan_multistep(self.state, data, labels, n_inner,
+                                          self.seed)
+
+    def train(self, batches: Iterator[tuple[np.ndarray, np.ndarray]],
+              total_steps: int, log_every: int | None = None,
+              save_every: int | None = None) -> dict[str, float]:
+        t = self.arch.training
+        n_unroll = t.n_unroll
+        log_every = log_every or t.summary_freq
+        save_every = save_every or t.save_freq
+        start = self._resume(batches, batches_per_step=n_unroll + 1)
+        metrics = {}
+        for step in range(start, total_steps):
+            xs, ys = zip(*(next(batches) for _ in range(n_unroll + 1)))
+            x_crit, y_crit = self._to_device(np.stack(xs[:-1]),
+                                             np.stack(ys[:-1]))
+            x_gen, y_gen = self._to_device(xs[-1], ys[-1])
+            g = steps_lib.step_generator(self.seed, step, self.device)
+            m = steps_lib.vawgan_step(
+                self.state, x_crit, y_crit, x_gen, y_gen,
+                steps_lib.vawgan_noise(g, x_gen.shape[0], self.arch))
+            if (step + 1) % log_every == 0 or step + 1 == total_steps:
+                metrics = {k: float(v) for k, v in m.items()}
+                self.writer.scalars(step + 1, metrics)
+                self._log_spectrograms(step + 1, x_gen, y_gen)
+            if (step + 1) % save_every == 0 or step + 1 == total_steps:
+                self.ckpt.save(step + 1, self.state)
+        self.ckpt.wait()
+        return metrics
+
+
+TRAINERS = {"VAETrainer": VAETrainer, "VAWGANTrainer": VAWGANTrainer}
+
+
+def make_trainer(arch: Architecture, run_dir: str, **kw) -> _BaseTrainer:
+    try:
+        cls = TRAINERS[arch.trainer]
+    except KeyError as e:
+        raise KeyError(f"unknown trainer {arch.trainer!r}; "
+                       f"known: {sorted(TRAINERS)}") from e
+    return cls(arch, run_dir, **kw)

@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py [--out DIR] [--profile]
 
-Four paths, each a ``WorldConfig`` and architecture of the converter:
+Five paths, each a ``WorldConfig`` and architecture of the converter:
 
   default  DEFAULT_WORLD: DIO (with the fused block scans) + StoneMask,
            CheapTrick, group-delay D4C (the main path; batch 128 x 4 s in
            the rate phase)
   harvest  Harvest f0, CheapTrick, group-delay D4C (batch 32 x 4 s)
+  harvest_decim2
+           Harvest's fast mode (harvest_channel_decim=2: 76 band channels
+           where WORLD's bank has 152), otherwise as harvest (batch 32 x 4 s)
   nccf     DIO + StoneMask, CheapTrick, D4C "nccf" (batch 16 x 4 s)
   fused    DEFAULT_WORLD and the fused-kernel architecture (conv_impl and
            d2s_impl "pallas": fused conv + LayerNorm + LeakyReLU in the
@@ -23,7 +26,8 @@ non-zero and prints no ``"ok"`` line):
                comparisons.
   2. build   — compile the nine CUDA kernels (tpuvc_torch/csrc) with nvcc
                into build/tpuvc_torch/ and load them.
-  3. kernels — one analysis per f0 method on the card at the rate phase's
+  3. kernels — one analysis per f0 path (default, harvest,
+               harvest_decim2) on the card at the rate phase's
                shapes and one fused model call on the
                default batch's envelopes record every kernel wrapper's
                real inputs, and one more default analysis of 16 x 4 s
@@ -39,8 +43,8 @@ non-zero and prints no ``"ok"`` line):
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
-               kernel of the path must have launched.  For the default,
-               Harvest and fused paths a 1 s input is also converted on the
+               kernel of the path must have launched.  For every path
+               but nccf a 1 s input is also converted on the
                card and on the CPU (plain versions, float32 model):
                waveform SNR >= 30 dB.  The fused path then drives the two
                other entry points, counters zeroed and read around each:
@@ -53,7 +57,7 @@ non-zero and prints no ``"ok"`` line):
                stage times and peak device memory (informational); the
                Harvest path also runs once at the 512 s call budget for
                its peak memory.  ``--profile`` adds a torch.profiler pass
-               over one call of the default, Harvest and fused paths
+               over one call of every path but nccf
                (device time by kernel, device-busy share); ``--out DIR`` keeps
                the results as JSON there.  The fused path's model stage is
                printed beside the default path's.
@@ -71,7 +75,22 @@ non-zero and prints no ``"ok"`` line):
                agree); a VAE resident run of 200 steps whose loss falls;
                step times and peak memory with cuDNN's TF32 on and off
                (informational; ``--profile`` adds a profiled VAW-GAN and
-               VAE step in each setting).
+               VAE step in each setting).  Its run directory and corpus
+               (whose 10 speakers also get 2 test utterances each, parallel
+               across speakers) stay for phase 7.
+  7. convert — the serving CLIs on phase 6's full-width checkpoint, launch
+               counters zeroed just before and read just after each call:
+               tpuvc_torch.cli.convert --all_pairs --transfer-encoding
+               ulaw8 (10 x 2 x 9 = 180 conversions in one batched call; the
+               DIO path's six kernels must launch; every file finite and
+               not silent; wall time and audio s/s), a single pair with
+               --f0-method harvest --harvest-decim 2 --save_spectrogram
+               (K1, K7, K6, K3, K4, K5 must launch; a PNG only where
+               matplotlib is installed), a single pair with --streaming;
+               load_converter on the card and on the CPU from the same
+               checkpoint (waveform SNR >= 30 dB, the same noise); and
+               tpuvc_torch.cli.evaluate in its round-trip mode (MCD < 8 dB)
+               and its conversion mode (every number finite).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -83,8 +102,10 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -128,15 +149,16 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "split_tf32_kernel", "d2s_ln_lrelu_kernel")
 
 DIO_KERNELS = ("events", "scan", "harmonics", "window", "smooth", "topk")
+HARVEST_KERNELS = ("events", "scan", "refine", "window", "smooth", "topk")
 FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
 
 # path -> (WorldConfig fields, kernels it runs, rate batch, Architecture
 # fields)
 PATHS = {
     "default": ({}, DIO_KERNELS, 128, {}),
-    "harvest": ({"f0_method": "harvest"},
-                ("events", "scan", "refine", "window", "smooth", "topk"), 32,
-                {}),
+    "harvest": ({"f0_method": "harvest"}, HARVEST_KERNELS, 32, {}),
+    "harvest_decim2": ({"f0_method": "harvest", "harvest_channel_decim": 2},
+                       HARVEST_KERNELS, 32, {}),
     "nccf": ({"ap_method": "nccf"},
              ("events", "scan", "harmonics", "window", "smooth"), 16, {}),
     "fused": ({}, DIO_KERNELS + ("conv", "d2s"), 128, FUSED_ARCH),
@@ -681,10 +703,10 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     import torch.nn.functional as F
     from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
                                  window)
-    batches = batches or {"default": PATHS["default"][2],
-                          "harvest": PATHS["harvest"][2]}
+    batches = batches or {p: PATHS[p][2]
+                          for p in ("default", "harvest", "harvest_decim2")}
     calls, sp = capture_inputs(dev, dur_s, batches)
-    d, h = calls["default"], calls["harvest"]
+    d, h, h2 = (calls[p] for p in ("default", "harvest", "harvest_decim2"))
     two_pass = capture_two_pass(dev, dur_s, two_pass_batch)
     m = capture_model_inputs(state, sp, dev)
     del sp
@@ -736,6 +758,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     sites = [  # kernel, label, captured call[, library key]
         ("events", "DIO stride 20", d["events"][0]),
         ("events", "Harvest stride 8", h["events"][0]),
+        ("events", "Harvest decim 2 stride 8", h2["events"][0]),
         ("harmonics", "StoneMask pass 1", d["harmonics"][0]),
         ("window", "CheapTrick", d["window"][0]),
         ("window", "CheapTrick, two-pass support", two_pass),
@@ -744,8 +767,10 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
         ("smooth", "D4C f0/2 signed, 810 Hz cap", d["smooth"][2]),
         ("topk", "D4C band statistic", d["topk"][0]),
         ("refine", "Harvest refinement", h["refine"][0]),
+        ("refine", "Harvest decim 2 refinement", h2["refine"][0]),
         ("scan", "DIO block scans", d["scan"][0]),
         ("scan", "Harvest block scans", h["scan"][0]),
+        ("scan", "Harvest decim 2 block scans", h2["scan"][0]),
         *[("conv", f"encoder layer {i + 1}", c, f"conv{i}") for i, c in
           enumerate(m["conv"])],
         *[("d2s", f"decoder site {i + 1}", c) for i, c in
@@ -787,7 +812,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
             + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
                else "none")
             + "".join(f"; {k} {r[k]:.4f}" for k in yardsticks.get(name, {})))
-    del calls, d, h, m, default, two_pass
+    del calls, d, h, h2, m, default, two_pass
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res
@@ -884,7 +909,6 @@ def phase_entry_points(conv, dev) -> dict:
     before and read just after each: one 3 s request streamed in 0.25 s
     blocks through StreamingConverter, and the analysis CLI over a
     synthetic corpus of 2 speakers x 2 utterances of 1.5 s."""
-    import tempfile
     import torch
     from tpuvc_torch.cli import analyze
     from tpuvc_torch.convert.streaming import StreamingConverter
@@ -1149,27 +1173,31 @@ def cudnn_tf32(on: bool):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def phase_train(dev, arch_path: str = TRAIN_ARCH, n_speakers: int = 10,
-                n_utts: int = 8, dur_s: float = 1.5, steps: int = 20,
+def phase_train(dev, tmp: str, arch_path: str = TRAIN_ARCH,
+                n_speakers: int = 10, n_utts: int = 8, n_test: int = 2,
+                dur_s: float = 1.5, steps: int = 20,
                 resident: int = 10, vae_steps: int = 200,
                 step_batch: int | None = None,
                 profile_dir: str | None = None) -> dict:
-    """Training through the port's entry points, on ``dev``:
-    make_vcc2016_corpus's synthetic corpus (its first ``n_speakers``
-    speakers, ``n_utts`` training utterances of ``dur_s`` s each) analysed
-    by cli.analyze; cli.train for ``steps`` streaming steps, then resumed
-    with ``--restore_from`` on the resident path (``--resident``) to
-    2 x ``steps``; one VAW-GAN step on the card and on the CPU from the
+    """Training through the port's entry points, on ``dev``, in the
+    directory ``tmp``: make_vcc2016_corpus's synthetic corpus (its first
+    ``n_speakers`` speakers, ``n_utts`` training and ``n_test`` test
+    utterances of ``dur_s`` s each, the test ones parallel across
+    speakers), its
+    training split analysed by cli.analyze; cli.train for ``steps``
+    streaming steps, then resumed with ``--restore_from`` on the resident
+    path (``--resident``) to 2 x ``steps``; one VAW-GAN step on the card and on the CPU from the
     same seeded parameters, batch and noise; a VAE resident run of
-    ``vae_steps`` whose loss must fall; and the steps' times."""
+    ``vae_steps`` whose loss must fall; and the steps' times.  The record
+    names the run directory and the corpus (``run_dir``, ``corpus``)."""
     import dataclasses
-    import tempfile
     import torch
     from tpuvc_torch.cli import analyze
     from tpuvc_torch.cli import train as cli_train
     from tpuvc_torch.data import synthetic
     from tpuvc_torch.data.dataset import FrameDataset
     from tpuvc_torch.data.normalizer import Tanhize
+    from tpuvc_torch.io import corpus as corpus_io
     from tpuvc_torch.train import steps as steps_lib
     from tpuvc_torch.train import trainer as trainer_lib
     from tpuvc_torch.utils.config import Architecture
@@ -1178,208 +1206,362 @@ def phase_train(dev, arch_path: str = TRAIN_ARCH, n_speakers: int = 10,
     t_phase = time.perf_counter()
     arch = Architecture.load(os.path.join(ROOT, arch_path))
     rec: dict = {"architecture": arch_path}
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        corpus = os.path.join(tmp, "corpus")
-        defs = dict(list(synthetic.VCC2016_SPEAKER_DEFS.items())[:n_speakers])
-        synthetic.make_corpus(corpus, n_train=n_utts, n_test=0, dur_s=dur_s,
-                              seed=0, speaker_defs=defs)
+    corpus = os.path.join(tmp, "corpus")
+    defs = dict(list(synthetic.VCC2016_SPEAKER_DEFS.items())[:n_speakers])
+    synthetic.make_corpus(corpus, n_train=n_utts, n_test=0, dur_s=dur_s,
+                          seed=0, speaker_defs=defs)
+    # the test split, parallel across speakers (conversion MCD compares a
+    # conversion with the target's recording of the same utterance), comes
+    # from a corpus of its own: the training split stays the non-parallel
+    # one the card-vs-CPU step's parameter rule was set on.  On a parallel
+    # training split one critic element misses that rule by 4% through
+    # float32 conditioning that both devices show (PERF.md, section 6)
+    parallel = os.path.join(tmp, "parallel")
+    synthetic.make_corpus(parallel, n_train=0, n_test=n_test, dur_s=dur_s,
+                          seed=0, speaker_defs=defs, parallel=True)
+    test_dir = os.path.join("wav", corpus_io.TEST_SPLIT)
+    shutil.rmtree(os.path.join(corpus, test_dir))
+    os.replace(os.path.join(parallel, test_dir),
+               os.path.join(corpus, test_dir))
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    analyze.main(["--corpus", corpus, "--splits", "train", "--quiet",
+                  "--device", dev.type])
+    sync()
+    rec["analyze_s"] = time.perf_counter() - t0
+    rec["analyze_launches"] = read_counts()
+    missing = [k for k in DIO_KERNELS if rec["analyze_launches"][k] == 0]
+    if missing and cuda:
+        raise AssertionError(f"train corpus: cli.analyze did not launch "
+                             f"{missing}")
+    ds = FrameDataset.from_bin_dir(corpus)
+    say(f"[6 train] corpus: {n_speakers} speakers x {n_utts} training (+ "
+        f"{n_test} test) utterances of {dur_s:g} s, {len(ds)} frames, analysed by cli.analyze in "
+        f"{rec['analyze_s']:.3f} s; kernel launches "
+        f"{rec['analyze_launches']}")
+
+    # cli.train: streaming, then resumed on the resident path
+    resumed = []
+    real_resume = trainer_lib._BaseTrainer._resume
+
+    def resume(self, *a, **kw):
+        resumed.append(real_resume(self, *a, **kw))
+        return resumed[-1]
+
+    common = ["--architecture", os.path.join(ROOT, arch_path),
+              "--corpus", corpus, "--logdir", os.path.join(tmp, "logs"),
+              "--no-tensorboard", "--device", dev.type]
+    trainer_lib._BaseTrainer._resume = resume
+    try:
         sync()
         reset_counts()
         t0 = time.perf_counter()
-        analyze.main(["--corpus", corpus, "--splits", "train", "--quiet",
-                      "--device", dev.type])
+        run = cli_train.main(common + ["--steps", str(steps)])
         sync()
-        rec["analyze_s"] = time.perf_counter() - t0
-        rec["analyze_launches"] = read_counts()
-        missing = [k for k in DIO_KERNELS if rec["analyze_launches"][k] == 0]
-        if missing and cuda:
-            raise AssertionError(f"train corpus: cli.analyze did not launch "
-                                 f"{missing}")
-        ds = FrameDataset.from_bin_dir(corpus)
-        say(f"[6 train] corpus: {n_speakers} speakers x {n_utts} utterances "
-            f"of {dur_s:g} s, {len(ds)} frames, analysed by cli.analyze in "
-            f"{rec['analyze_s']:.3f} s; kernel launches "
-            f"{rec['analyze_launches']}")
+        t1 = time.perf_counter()
+        cli_train.main(common + ["--restore_from", run, "--steps",
+                                 str(2 * steps), "--resident",
+                                 str(resident)])
+        sync()
+        t2 = time.perf_counter()
+    finally:
+        trainer_lib._BaseTrainer._resume = real_resume
+    rec["train_launches"] = read_counts()
+    rec["cli_streaming_s"], rec["cli_resident_s"] = t1 - t0, t2 - t1
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+    with open(os.path.join(run, "events", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    rec.update(run_dir=run, corpus=corpus, resumed_at=resumed[-1],
+               ckpts=ckpts,
+               logged_steps=[r["step"] for r in logged],
+               final_step=logged[-1]["step"],
+               final_metrics={k: v for k, v in logged[-1].items()
+                              if k not in ("step", "time")})
+    finite = all(math.isfinite(v) for r in logged for k, v in r.items())
+    if (resumed != [0, steps] or rec["final_step"] != 2 * steps
+            or ckpts != [f"{steps}.pt", f"{2 * steps}.pt"] or not finite
+            or not os.path.exists(os.path.join(run, "architecture.json"))):
+        raise AssertionError(f"cli.train: resumed at {resumed}, logged "
+                             f"{[r['step'] for r in logged]}, "
+                             f"checkpoints {ckpts}, finite {finite}")
+    if any(rec["train_launches"].values()):
+        raise AssertionError("training launched a hand kernel: "
+                             f"{rec['train_launches']}")
+    say(f"[6 train] cli.train {arch.model}/{arch.trainer} ({arch_path}, "
+        f"batch {arch.training.batch_size}, n_unroll "
+        f"{arch.training.n_unroll}): {steps} streaming steps in "
+        f"{rec['cli_streaming_s']:.3f} s, resumed at step "
+        f"{resumed[-1]} and run to {rec['final_step']} with --resident "
+        f"{resident} in {rec['cli_resident_s']:.3f} s (both with "
+        f"start-up); checkpoints {ckpts}; metrics finite, last "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    rec["final_metrics"].items())
+        + f"; kernel launches {rec['train_launches']}")
 
-        # cli.train: streaming, then resumed on the resident path
-        resumed = []
-        real_resume = trainer_lib._BaseTrainer._resume
+    # one VAW-GAN step on the card and on the CPU, same everything
+    b = step_batch or arch.training.batch_size
+    norm = Tanhize.from_etc(os.path.join(corpus, "etc"))
+    stream = ds.batches(b, seed=0, normalizer=norm)
+    xs, ys = zip(*(next(stream) for _ in range(arch.training.n_unroll
+                                               + 1)))
+    batch = (torch.from_numpy(np.stack(xs[:-1])),
+             torch.from_numpy(np.stack(ys[:-1])).long(),
+             torch.from_numpy(xs[-1]), torch.from_numpy(ys[-1]).long())
+    noise = steps_lib.vawgan_noise(steps_lib.step_generator(0, 0, dev),
+                                   b, arch)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = steps_lib.init_vawgan_state(arch, 0, d)
+        seen_g, seen_d = record_grads(st.opt_g), record_grads(st.opt_d)
+        m = steps_lib.vawgan_step(
+            st, *(v.to(d) for v in batch),
+            steps_lib.VAWGANNoise(noise.z_crit.to(d), noise.gp.to(d),
+                                  noise.z_gen.to(d)))
+        runs[name] = dict(m={k: float(v) for k, v in m.items()},
+                          gen=dict(st.gen.named_parameters()),
+                          critic=dict(st.critic.named_parameters()),
+                          grads_g=named_grads(st.gen, seen_g),
+                          grads_d=named_grads(st.critic, seen_d))
+    card, cpu = runs["card"], runs["cpu"]
+    rel = {k: abs(card["m"][k] - cpu["m"][k]) / max(abs(cpu["m"][k]),
+                                                    1e-30)
+           for k in cpu["m"]}
+    bad = [k for k in cpu["m"] if abs(card["m"][k] - cpu["m"][k])
+           > STEP_RTOL * abs(cpu["m"][k]) + STEP_ATOL]
+    if bad:
+        raise AssertionError(f"VAW-GAN step, card vs CPU: {bad} differ "
+                             f"({card['m']} vs {cpu['m']})")
+    lr = arch.training.lr
+    worst_g = params_agree(card["gen"], cpu["gen"], cpu["grads_g"], lr,
+                           PARAM_FRAC, PARAM_TOL)
+    worst_d = params_agree(card["critic"], cpu["critic"],
+                           cpu["grads_d"], lr, PARAM_FRAC, PARAM_TOL)
+    rec["card_vs_cpu"] = {"batch": b, "metrics_card": card["m"],
+                          "metrics_cpu": cpu["m"],
+                          "max_rel_err": max(rel.values()),
+                          "gen_err_lr": worst_g,
+                          "critic_err_lr": worst_d}
+    say(f"[6 train] one full VAW-GAN step (batch {b}), card vs CPU from "
+        f"the same seeded parameters, batch and noise: loss dict max "
+        f"relative error {max(rel.values()):.3e} (bound rtol "
+        f"{STEP_RTOL:g} + atol {STEP_ATOL:g}); parameters, in lr, "
+        f"generator {worst_g['significant']:.3e} where |g| >= "
+        f"{PARAM_FRAC:g} max (bound {PARAM_TOL:g}) / {worst_g['rest']:.3e}"
+        f" elsewhere (bound 2 per update), critic "
+        f"{worst_d['significant']:.3e} / {worst_d['rest']:.3e}")
+    del runs, card, cpu, st
 
-        def resume(self, *a, **kw):
-            resumed.append(real_resume(self, *a, **kw))
-            return resumed[-1]
+    # the VAE learns: a resident run whose logged loss falls
+    vae_arch = dataclasses.replace(arch, model="VAE",
+                                   trainer="VAETrainer")
+    vae = trainer_lib.make_trainer(vae_arch, os.path.join(tmp, "vae"),
+                                   use_tensorboard=False, device=dev)
+    data = norm.forward(ds.x)
+    n_inner = max(1, vae_steps // 20)
+    vae.train_resident(data, ds.y, vae_steps, n_inner=n_inner,
+                       log_every=n_inner, save_every=vae_steps)
+    vae.close()
+    with open(os.path.join(tmp, "vae", "events", "metrics.jsonl")) as f:
+        loss = [json.loads(line)["loss"] for line in f]
+    first, last = float(np.mean(loss[:5])), float(np.mean(loss[-5:]))
+    rec["vae"] = {"steps": vae_steps, "loss": loss, "first": first,
+                  "last": last}
+    if not last < first:
+        raise AssertionError(f"VAE loss did not fall: {loss}")
+    say(f"[6 train] VAE resident run, {vae_steps} steps ({n_inner} per "
+        f"call): mean loss of the first 5 log points {first:.4f}, of the"
+        f" last 5 {last:.4f}")
 
-        common = ["--architecture", os.path.join(ROOT, arch_path),
-                  "--corpus", corpus, "--logdir", os.path.join(tmp, "logs"),
-                  "--no-tensorboard", "--device", dev.type]
-        trainer_lib._BaseTrainer._resume = resume
-        try:
-            sync()
-            reset_counts()
-            t0 = time.perf_counter()
-            run = cli_train.main(common + ["--steps", str(steps)])
-            sync()
-            t1 = time.perf_counter()
-            cli_train.main(common + ["--restore_from", run, "--steps",
-                                     str(2 * steps), "--resident",
-                                     str(resident)])
-            sync()
-            t2 = time.perf_counter()
-        finally:
-            trainer_lib._BaseTrainer._resume = real_resume
-        rec["train_launches"] = read_counts()
-        rec["cli_streaming_s"], rec["cli_resident_s"] = t1 - t0, t2 - t1
-        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
-        with open(os.path.join(run, "events", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
-        rec.update(resumed_at=resumed[-1], ckpts=ckpts,
-                   logged_steps=[r["step"] for r in logged],
-                   final_step=logged[-1]["step"],
-                   final_metrics={k: v for k, v in logged[-1].items()
-                                  if k not in ("step", "time")})
-        finite = all(math.isfinite(v) for r in logged for k, v in r.items())
-        if (resumed != [0, steps] or rec["final_step"] != 2 * steps
-                or ckpts != [f"{steps}.pt", f"{2 * steps}.pt"] or not finite
-                or not os.path.exists(os.path.join(run, "architecture.json"))):
-            raise AssertionError(f"cli.train: resumed at {resumed}, logged "
-                                 f"{[r['step'] for r in logged]}, "
-                                 f"checkpoints {ckpts}, finite {finite}")
-        if any(rec["train_launches"].values()):
-            raise AssertionError("training launched a hand kernel: "
-                                 f"{rec['train_launches']}")
-        say(f"[6 train] cli.train {arch.model}/{arch.trainer} ({arch_path}, "
-            f"batch {arch.training.batch_size}, n_unroll "
-            f"{arch.training.n_unroll}): {steps} streaming steps in "
-            f"{rec['cli_streaming_s']:.3f} s, resumed at step "
-            f"{resumed[-1]} and run to {rec['final_step']} with --resident "
-            f"{resident} in {rec['cli_resident_s']:.3f} s (both with "
-            f"start-up); checkpoints {ckpts}; metrics finite, last "
-            + ", ".join(f"{k} {v:.4f}" for k, v in
-                        rec["final_metrics"].items())
-            + f"; kernel launches {rec['train_launches']}")
-
-        # one VAW-GAN step on the card and on the CPU, same everything
-        b = step_batch or arch.training.batch_size
-        norm = Tanhize.from_etc(os.path.join(corpus, "etc"))
-        stream = ds.batches(b, seed=0, normalizer=norm)
-        xs, ys = zip(*(next(stream) for _ in range(arch.training.n_unroll
-                                                   + 1)))
-        batch = (torch.from_numpy(np.stack(xs[:-1])),
-                 torch.from_numpy(np.stack(ys[:-1])).long(),
-                 torch.from_numpy(xs[-1]), torch.from_numpy(ys[-1]).long())
-        noise = steps_lib.vawgan_noise(steps_lib.step_generator(0, 0, dev),
-                                       b, arch)
-        runs = {}
-        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            st = steps_lib.init_vawgan_state(arch, 0, d)
-            seen_g, seen_d = record_grads(st.opt_g), record_grads(st.opt_d)
-            m = steps_lib.vawgan_step(
-                st, *(v.to(d) for v in batch),
-                steps_lib.VAWGANNoise(noise.z_crit.to(d), noise.gp.to(d),
-                                      noise.z_gen.to(d)))
-            runs[name] = dict(m={k: float(v) for k, v in m.items()},
-                              gen=dict(st.gen.named_parameters()),
-                              critic=dict(st.critic.named_parameters()),
-                              grads_g=named_grads(st.gen, seen_g),
-                              grads_d=named_grads(st.critic, seen_d))
-        card, cpu = runs["card"], runs["cpu"]
-        rel = {k: abs(card["m"][k] - cpu["m"][k]) / max(abs(cpu["m"][k]),
-                                                        1e-30)
-               for k in cpu["m"]}
-        bad = [k for k in cpu["m"] if abs(card["m"][k] - cpu["m"][k])
-               > STEP_RTOL * abs(cpu["m"][k]) + STEP_ATOL]
-        if bad:
-            raise AssertionError(f"VAW-GAN step, card vs CPU: {bad} differ "
-                                 f"({card['m']} vs {cpu['m']})")
-        lr = arch.training.lr
-        worst_g = params_agree(card["gen"], cpu["gen"], cpu["grads_g"], lr,
-                               PARAM_FRAC, PARAM_TOL)
-        worst_d = params_agree(card["critic"], cpu["critic"],
-                               cpu["grads_d"], lr, PARAM_FRAC, PARAM_TOL)
-        rec["card_vs_cpu"] = {"batch": b, "metrics_card": card["m"],
-                              "metrics_cpu": cpu["m"],
-                              "max_rel_err": max(rel.values()),
-                              "gen_err_lr": worst_g,
-                              "critic_err_lr": worst_d}
-        say(f"[6 train] one full VAW-GAN step (batch {b}), card vs CPU from "
-            f"the same seeded parameters, batch and noise: loss dict max "
-            f"relative error {max(rel.values()):.3e} (bound rtol "
-            f"{STEP_RTOL:g} + atol {STEP_ATOL:g}); parameters, in lr, "
-            f"generator {worst_g['significant']:.3e} where |g| >= "
-            f"{PARAM_FRAC:g} max (bound {PARAM_TOL:g}) / {worst_g['rest']:.3e}"
-            f" elsewhere (bound 2 per update), critic "
-            f"{worst_d['significant']:.3e} / {worst_d['rest']:.3e}")
-        del runs, card, cpu, st
-
-        # the VAE learns: a resident run whose logged loss falls
-        vae_arch = dataclasses.replace(arch, model="VAE",
-                                       trainer="VAETrainer")
-        vae = trainer_lib.make_trainer(vae_arch, os.path.join(tmp, "vae"),
-                                       use_tensorboard=False, device=dev)
-        data = norm.forward(ds.x)
-        n_inner = max(1, vae_steps // 20)
-        vae.train_resident(data, ds.y, vae_steps, n_inner=n_inner,
-                           log_every=n_inner, save_every=vae_steps)
-        vae.close()
-        with open(os.path.join(tmp, "vae", "events", "metrics.jsonl")) as f:
-            loss = [json.loads(line)["loss"] for line in f]
-        first, last = float(np.mean(loss[:5])), float(np.mean(loss[-5:]))
-        rec["vae"] = {"steps": vae_steps, "loss": loss, "first": first,
-                      "last": last}
-        if not last < first:
-            raise AssertionError(f"VAE loss did not fall: {loss}")
-        say(f"[6 train] VAE resident run, {vae_steps} steps ({n_inner} per "
-            f"call): mean loss of the first 5 log points {first:.4f}, of the"
-            f" last 5 {last:.4f}")
-
-        # informational times, with cuDNN's TF32 on (PyTorch's default,
-        # what cli.train runs with) and off (float32 throughout, as the
-        # comparisons run)
-        st = steps_lib.init_vawgan_state(arch, 0, dev)
-        xc, yc, xg, yg = (v.to(dev) for v in batch)
-        table = torch.as_tensor(data, device=dev)
-        labels = torch.as_tensor(ds.y, device=dev).long()
-        calls = {
-            "vawgan_step": (lambda: steps_lib.vawgan_step(
-                st, xc, yc, xg, yg, noise), 1),
-            "vawgan_resident_step": (lambda: steps_lib.vawgan_multistep(
-                st, table, labels, 10, 0), 10),
-            "vae_resident_step": (lambda: steps_lib.vae_multistep(
-                vae.state, table, labels, 10, 0), 10)}
-        times: dict = {}
-        for tf32 in (True, False):
-            tag = "tf32_on" if tf32 else "tf32_off"
-            with cudnn_tf32(tf32):
-                for name, (fn, per) in calls.items():
-                    if cuda:
-                        torch.cuda.empty_cache()
-                        torch.cuda.reset_peak_memory_stats()
-                    times.setdefault(name + "_ms", {})[tag] = step_ms(
-                        fn, dev, 5 if per == 1 else 2) / per
-                    times.setdefault(name + "_peak_gib", {})[tag] = (
-                        torch.cuda.max_memory_allocated() / 2 ** 30
-                        if cuda else 0.0)
-                if profile_dir and cuda:
-                    for name in ("vawgan_step", "vae_resident_step"):
-                        fn = (calls[name][0] if name == "vawgan_step" else
-                              lambda: steps_lib.vae_multistep(
-                                  vae.state, table, labels, 1, 0))
-                        times.setdefault("profile", {})[
-                            f"{name}_{tag}"] = profile_call(
-                                fn, profile_dir,
-                                f"train_{name}_{tag}_profile.txt", "6 train")
-        rec["times"] = times
-        for name in calls:
-            say(f"[6 train] {name.replace('_', ' ')} (informational; "
-                "synchronised host clock, device batches): "
-                + "; ".join(
-                    f"cuDNN TF32 {tag[5:]} {times[name + '_ms'][tag]:.2f} ms,"
-                    f" peak device memory "
-                    f"{times[name + '_peak_gib'][tag]:.2f} GiB"
-                    for tag in ("tf32_on", "tf32_off")))
+    # informational times, with cuDNN's TF32 on (PyTorch's default,
+    # what cli.train runs with) and off (float32 throughout, as the
+    # comparisons run)
+    st = steps_lib.init_vawgan_state(arch, 0, dev)
+    xc, yc, xg, yg = (v.to(dev) for v in batch)
+    table = torch.as_tensor(data, device=dev)
+    labels = torch.as_tensor(ds.y, device=dev).long()
+    calls = {
+        "vawgan_step": (lambda: steps_lib.vawgan_step(
+            st, xc, yc, xg, yg, noise), 1),
+        "vawgan_resident_step": (lambda: steps_lib.vawgan_multistep(
+            st, table, labels, 10, 0), 10),
+        "vae_resident_step": (lambda: steps_lib.vae_multistep(
+            vae.state, table, labels, 10, 0), 10)}
+    times: dict = {}
+    for tf32 in (True, False):
+        tag = "tf32_on" if tf32 else "tf32_off"
+        with cudnn_tf32(tf32):
+            for name, (fn, per) in calls.items():
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                times.setdefault(name + "_ms", {})[tag] = step_ms(
+                    fn, dev, 5 if per == 1 else 2) / per
+                times.setdefault(name + "_peak_gib", {})[tag] = (
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+                    if cuda else 0.0)
+            if profile_dir and cuda:
+                for name in ("vawgan_step", "vae_resident_step"):
+                    fn = (calls[name][0] if name == "vawgan_step" else
+                          lambda: steps_lib.vae_multistep(
+                              vae.state, table, labels, 1, 0))
+                    times.setdefault("profile", {})[
+                        f"{name}_{tag}"] = profile_call(
+                            fn, profile_dir,
+                            f"train_{name}_{tag}_profile.txt", "6 train")
+    rec["times"] = times
+    for name in calls:
+        say(f"[6 train] {name.replace('_', ' ')} (informational; "
+            "synchronised host clock, device batches): "
+            + "; ".join(
+                f"cuDNN TF32 {tag[5:]} {times[name + '_ms'][tag]:.2f} ms,"
+                f" peak device memory "
+                f"{times[name + '_peak_gib'][tag]:.2f} GiB"
+                for tag in ("tf32_on", "tf32_off")))
     rec["phase_s"] = time.perf_counter() - t_phase
     say(f"[6 train] phase 6 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+# --- phase 7: convert ------------------------------------------------------
+
+def finite_json(rec: dict) -> bool:
+    return all(v is not None and math.isfinite(v) for v in rec.values()
+               if not isinstance(v, str))
+
+
+def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
+    """The serving CLIs on the checkpoint of training run ``run`` and its
+    corpus, writing under ``out``, launch counters zeroed just before and
+    read just after each call."""
+    import importlib.util
+    import torch
+    from tpuvc_torch.cli import convert as cli_convert
+    from tpuvc_torch.cli import evaluate as cli_evaluate
+    from tpuvc_torch.convert import pipeline
+    from tpuvc_torch.io import corpus as corpus_io
+    from tpuvc_torch.io.wav import read_wav
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    speakers = corpus_io.read_speakers(os.path.join(corpus, "etc"))
+    n_test = len(corpus_io.list_wavs(corpus, corpus_io.TEST_SPLIT,
+                                     speakers[0]))
+    src, trg = speakers[0], speakers[-1]
+    common = ["--checkpoint", run, "--corpus", corpus, "--device", dev.type]
+    rec: dict = {}
+
+    def drive(name, fn, argv, kernels=()):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing and cuda:
+            raise AssertionError(f"{name} did not launch {missing}")
+        rec[name] = {"wall_s": wall, "launches": launches}
+        return res, wall, launches
+
+    def check_wavs(name, paths):
+        secs = 0.0
+        for path in paths:
+            y, fs = read_wav(path)
+            if not (np.all(np.isfinite(y)) and np.std(y) > 1e-4):
+                raise AssertionError(f"{name}: {path} is not finite or is "
+                                     "silent")
+            secs += len(y) / fs
+        return secs
+
+    # all pairs, one batched call
+    outs, wall, launches = drive(
+        "all_pairs", cli_convert.main,
+        common + ["--all_pairs", "--transfer-encoding", "ulaw8", "--output",
+                  os.path.join(out, "all_pairs")], DIO_KERNELS)
+    want = len(speakers) * n_test * (len(speakers) - 1)
+    if len(outs) != want:
+        raise AssertionError(f"all pairs: {len(outs)} files for {want}")
+    if cuda and launches["events"] != 1:
+        raise AssertionError(f"all pairs took {launches['events']} batched "
+                             "calls for one")
+    secs = check_wavs("all pairs", outs)
+    rec["all_pairs"].update(files=len(outs), audio_s=secs,
+                            audio_s_per_s=secs / wall)
+    say(f"[7 convert] cli.convert --all_pairs --transfer-encoding ulaw8: "
+        f"{len(outs)} conversions ({len(speakers)} speakers x {n_test} test "
+        f"utterances x {len(speakers) - 1} targets, {secs:.1f} s of audio) "
+        f"in {wall:.3f} s with start-up = {secs / wall:.2f} audio s per "
+        f"wall s; kernel launches {launches}")
+
+    # a decim-2 Harvest pair, with a spectrogram where matplotlib exists
+    out_h = os.path.join(out, "harvest_decim2")
+    outs, wall, launches = drive(
+        "harvest_decim2", cli_convert.main,
+        common + ["--src", src, "--trg", trg, "--f0-method", "harvest",
+                  "--harvest-decim", "2", "--save_spectrogram", "--output",
+                  out_h], HARVEST_KERNELS)
+    check_wavs("harvest decim 2", outs)
+    pngs = [f for f in os.listdir(out_h) if f.endswith(".png")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if len(pngs) != (len(outs) if has_mpl else 0):
+        raise AssertionError(f"--save_spectrogram wrote {len(pngs)} PNGs "
+                             f"for {len(outs)} files (matplotlib "
+                             f"{'present' if has_mpl else 'absent'})")
+    say(f"[7 convert] cli.convert {src}->{trg} --f0-method harvest "
+        f"--harvest-decim 2 --save_spectrogram: {len(outs)} files in "
+        f"{wall:.3f} s, {len(pngs)} PNGs (matplotlib "
+        f"{'present' if has_mpl else 'absent'}); kernel launches {launches}")
+
+    # a streamed pair
+    outs, wall, launches = drive(
+        "streaming", cli_convert.main,
+        common + ["--src", src, "--trg", trg, "--streaming", "--output",
+                  os.path.join(out, "streaming")], DIO_KERNELS)
+    check_wavs("streaming", outs)
+    say(f"[7 convert] cli.convert {src}->{trg} --streaming: {len(outs)} "
+        f"files in {wall:.3f} s; kernel launches {launches}")
+
+    # load_converter on the card and on the CPU, the same noise
+    x = read_wav(corpus_io.list_wavs(corpus, corpus_io.TEST_SPLIT,
+                                     src)[0])[0]
+    real = pipeline.synthesis_noise
+    pipeline.synthesis_noise = lambda seeds, n, d: real(seeds, n,
+                                                        "cpu").to(d)
+    try:
+        ys = [cli_convert.load_converter(run, corpus, device=d)[0].convert(
+            x, src, trg, seed=5) for d in (dev, torch.device("cpu"))]
+    finally:
+        pipeline.synthesis_noise = real
+    y_dev, y_cpu = (y.astype(np.float64) for y in ys)
+    snr = 10 * math.log10(np.sum(y_cpu ** 2)
+                          / max(np.sum((y_dev - y_cpu) ** 2), 1e-30))
+    rec["card_vs_cpu_snr_db"] = snr
+    say(f"[7 convert] load_converter on {dev.type} and on the CPU, "
+        f"{len(x) / FS:g} s {src}->{trg}, the same noise: waveform SNR "
+        f"{snr:.1f} dB (bound 30 dB)")
+    if not snr >= 30.0:
+        raise AssertionError(f"load_converter: card and CPU disagree: SNR "
+                             f"{snr:.1f} dB")
+
+    # the evaluation CLI in both modes
+    rt, wall, launches = drive(
+        "evaluate_round_trip", cli_evaluate.main,
+        ["--corpus", corpus, "--limit", "4", "--device", dev.type],
+        DIO_KERNELS)
+    if not (finite_json(rt) and rt["mean"] < 8.0):
+        raise AssertionError(f"cli.evaluate round trip: {rt}")
+    cv, wall_cv, launches_cv = drive(
+        "evaluate_conversion", cli_evaluate.main,
+        common + ["--src", src, "--trg", trg], DIO_KERNELS)
+    if not (finite_json(cv) and cv["n_utterances"] == n_test):
+        raise AssertionError(f"cli.evaluate conversion: {cv}")
+    rec["evaluate_round_trip"]["result"] = rt
+    rec["evaluate_conversion"]["result"] = cv
+    say(f"[7 convert] cli.evaluate round trip in {wall:.3f} s: {rt}; "
+        f"kernel launches {launches}")
+    say(f"[7 convert] cli.evaluate --checkpoint {src}->{trg} in "
+        f"{wall_cv:.3f} s: {cv}; kernel launches {launches_cv}")
     return rec
 
 
@@ -1479,7 +1661,7 @@ def main() -> int:
                     "profile tables); nothing is written without it")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over one call of the "
-                    "default, Harvest and fused paths (needs --out)")
+                    "paths but nccf (needs --out)")
     args = ap.parse_args()
     if args.profile and not args.out:
         ap.error("--profile needs --out")
@@ -1506,14 +1688,23 @@ def main() -> int:
     say(f"[5 rate] model stage (encode + decode) at batch "
         f"{PATHS['fused'][2]} x 4 s: default {model_s['default']:.4f} s, "
         f"fused {model_s['fused']:.4f} s")
-    train = phase_train(dev, profile_dir=args.out if args.profile else None)
-    say(f"[6 train] card: {smi}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        train = phase_train(dev, tmp,
+                            profile_dir=args.out if args.profile else None)
+        say(f"[6 train] card: {smi}")
+        t0 = time.perf_counter()
+        convert = phase_convert(dev, train["run_dir"], train["corpus"],
+                                os.path.join(tmp, "converted"))
+        convert["phase_s"] = time.perf_counter() - t0
+    say(f"[7 convert] phase 7 took {convert['phase_s']:.1f} s; card: {smi}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
-                       "rate": rates, "train": train}, f, indent=1)
+                       "rate": rates, "train": train, "convert": convert},
+                      f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))
     say(json.dumps({"ok": True, "device": {

@@ -406,7 +406,8 @@ def test_chip_smoke_smooth_library_matches_plain(cap):
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's kernel, serve and rate phases run end to end on the
-    CPU at a small size for every path, the fused path's streaming and
+    CPU at a small size for every path (harvest_decim2 included: its K1,
+    K7 and K6 sites in phase 3), the fused path's streaming and
     cli.analyze drives included (every wrapper takes its plain version, so
     nothing launches and the kernel/plain errors are exactly 0), and its
     JSON record names all nine kernels with every key."""
@@ -414,16 +415,21 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
     state = chip_smoke.build_state()
-    kern = chip_smoke.phase_kernels(cpu, state, dur_s=0.5,
-                                    batches={"default": 1, "harvest": 1},
-                                    two_pass_batch=1)
+    kern = chip_smoke.phase_kernels(
+        cpu, state, dur_s=0.5,
+        batches={"default": 1, "harvest": 1, "harvest_decim2": 1},
+        two_pass_batch=1)
     assert [k for k, _, _, _ in chip_smoke.KERNELS] == list(kern)
     assert all(r["max_abs_err"] == 0.0 for v in kern.values() for r in v)
-    assert len(kern["events"]) == 2 and len(kern["smooth"]) == 3
+    assert len(kern["events"]) == 3 and len(kern["smooth"]) == 3
     assert len(kern["window"]) == 2
     assert kern["window"][0]["two_pass_frames"] == 0
     assert kern["window"][1]["two_pass_frames"] > 0
-    assert len(kern["scan"]) == 2 and len(kern["conv"]) == 5
+    # the decim-2 bank: half of Harvest's 152 channels, at the same slots
+    assert kern["events"][2]["shape"][0][0] == 76
+    assert kern["events"][1]["shape"][0][0] == 152
+    assert len(kern["refine"]) == 2
+    assert len(kern["scan"]) == 3 and len(kern["conv"]) == 5
     assert len(kern["d2s"]) == 3
     assert kern["conv"][4]["bound_by"] == "operations"
     assert kern["d2s"][0]["bound_by"] == "bytes"

@@ -645,15 +645,20 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     streaming then resumed on the resident path (the small architecture's
     file, 2 then 4 steps), the card-vs-CPU step run CPU against CPU, and
     the VAE's loss falling over its resident run.  The CLI's run directory
-    holds architecture.json, metrics.jsonl and the checkpoints."""
+    holds architecture.json, metrics.jsonl and the checkpoints.  Phase 7
+    (convert) then runs on that run directory and corpus: all pairs, a
+    decim-2 Harvest pair, a streamed pair, load_converter twice and both
+    evaluate modes, every counter read 0 (the CPU takes the plain
+    versions)."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     _, parch = _archs()
     arch_path = str(tmp_path / "small.json")
     parch.save(arch_path)
     cpu = torch.device("cpu")
     rec = chip_smoke.phase_train(
-        cpu, arch_path=arch_path, n_speakers=2, n_utts=2, dur_s=0.5,
-        steps=2, resident=2, vae_steps=40, step_batch=B)
+        cpu, str(tmp_path), arch_path=arch_path, n_speakers=2, n_utts=2,
+        n_test=2, dur_s=0.5, steps=2, resident=2, vae_steps=40,
+        step_batch=B)
     assert rec["resumed_at"] == 2 and rec["final_step"] == 4
     assert rec["analyze_launches"] == dict.fromkeys(
         chip_smoke.counters(), 0)
@@ -664,3 +669,14 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     assert rec["vae"]["last"] < rec["vae"]["first"]
     assert all(v[tag] > 0 for k, v in rec["times"].items()
                if k.endswith("_ms") for tag in ("tf32_on", "tf32_off"))
+
+    conv = chip_smoke.phase_convert(cpu, rec["run_dir"], rec["corpus"],
+                                    str(tmp_path / "converted"))
+    calls = ("all_pairs", "harvest_decim2", "streaming",
+             "evaluate_round_trip", "evaluate_conversion")
+    assert all(conv[c]["launches"] == dict.fromkeys(chip_smoke.counters(), 0)
+               for c in calls)
+    assert conv["all_pairs"]["files"] == 2 * 2 * 1
+    assert conv["card_vs_cpu_snr_db"] >= 300.0      # CPU against CPU
+    assert conv["evaluate_round_trip"]["result"]["mean"] < 8.0
+    assert conv["evaluate_conversion"]["result"]["n_utterances"] == 2

@@ -5,7 +5,8 @@ the WORLD analysis of ``dsp/world.py`` (DIO + StoneMask or Harvest f0,
 CheapTrick envelope, D4C aperiodicity; ``DEFAULT_WORLD`` is DIO +
 StoneMask with group-delay D4C); the envelope is energy-normalised,
 log10'd and mapped to [-1, 1] (Tanhize), encoded, decoded with the target
-speaker's code and de-normalised; f0 gets the log-linear transform;
+speaker's code (from z_mu, or a sample of z with ``sample_z``) and
+de-normalised; f0 gets the log-linear transform;
 minimum-phase synthesis makes the waveform.
 PyTorch runs eagerly, so there is no jit boundary: the batch is written
 out as a leading dimension.
@@ -28,6 +29,7 @@ from tpuvc_torch.dsp.constants import DEFAULT_WORLD, EPSILON, WorldConfig
 from tpuvc_torch.dsp.synthesis import synthesis_noise, synthesize
 from tpuvc_torch.dsp.world import world_features
 from tpuvc_torch.io.wav import resample
+from tpuvc_torch.models.losses import reparameterize
 from tpuvc_torch.ops import ulaw
 from tpuvc_torch.utils.device import resolve
 
@@ -57,30 +59,66 @@ def _denormalize_sp(u, en, xmin, xmax):
     return torch.pow(10.0, log_sp) * en
 
 
-def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD):
+def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
+                          sample_z: bool = False):
     """The batched converter over [B, T] utterances with per-utterance
     target speakers and f0 statistics.
 
     Returns fn(xs [B, T], y_trgs [B] int, xmin, xmax [513], mu_srcs,
-    sd_srcs, mu_trgs, sd_trgs [B], noise [B, (T//hop+1)*hop]) ->
+    sd_srcs, mu_trgs, sd_trgs [B], noise [B, (T//hop+1)*hop], eps=None) ->
     waveforms [B, (T//hop+1)*hop].  ``model`` is a
-    ``tpuvc_torch.models.vae.VAWGAN`` holding its parameters."""
+    ``tpuvc_torch.models.vae.VAWGAN`` holding its parameters.  With
+    ``sample_z`` the decoder takes z = z_mu + eps * exp(z_lv / 2), ``eps``
+    [B, T//hop+1, z_dim] standard normal; otherwise z_mu."""
 
     @torch.no_grad()
     def convert(xs, y_trgs, xmin, xmax, mu_srcs, sd_srcs, mu_trgs, sd_trgs,
-                noise):
+                noise, eps=None):
         xs = xs.to(torch.float32)
         bsz = xs.shape[0]
         f0, sp, ap = world_features(xs, cfg)
         n = f0.shape[1]
         u, en = _normalize_sp(sp, xmin, xmax)
-        z_mu, _ = model.encode(u.reshape(bsz * n, -1))
+        z_mu, z_lv = model.encode(u.reshape(bsz * n, -1))
+        z = (reparameterize(z_mu, z_lv, eps.reshape(z_mu.shape)) if sample_z
+             else z_mu)
         y_vec = y_trgs.to(torch.int64).repeat_interleave(n)
-        u_conv = model.decode(z_mu, y_vec).reshape(bsz, n, -1)
+        u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
         sp_conv = _denormalize_sp(u_conv, en, xmin, xmax)
         f0_conv = convert_f0(f0, mu_srcs, sd_srcs, mu_trgs, sd_trgs)
         return synthesize(f0_conv, sp_conv, ap, noise, fs=cfg.fs,
                           hop=cfg.hop, fft_size=cfg.fft_size)
+
+    return convert
+
+
+def make_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
+                    sample_z: bool = False):
+    """The single-utterance converter (the JAX ``make_convert_fn``).
+
+    Returns fn(x [T], y_trg, xmin, xmax, mu_src, sd_src, mu_trg, sd_trg,
+    seed=0, eps=None, noise=None) -> waveform [(T//hop+1)*hop], on the
+    model's device.  The synthesis noise is ``noise`` when given, else
+    drawn as ``synthesis_noise([seed])``; with ``sample_z``, ``eps``
+    [T//hop+1, z_dim] when given, else standard normal from a
+    ``torch.Generator`` seeded with ``seed``."""
+    batch = make_batch_convert_fn(model, cfg, sample_z)
+    dev = next(model.parameters()).device
+
+    def convert(x, y_trg, xmin, xmax, mu_src, sd_src, mu_trg, sd_trg,
+                seed: int = 0, eps=None, noise=None):
+        one = lambda v, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            v, dtype=dt, device=dev).reshape(1)
+        n = x.shape[-1] // cfg.hop + 1
+        if noise is None:
+            noise = synthesis_noise([seed], n * cfg.hop, dev)[0]
+        if sample_z and eps is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(seed))
+            eps = torch.randn((n, model.arch.z_dim), generator=g, device=dev)
+        return batch(x.to(dev)[None], one(y_trg, torch.int64), xmin, xmax,
+                     one(mu_src), one(sd_src), one(mu_trg), one(sd_trg),
+                     noise[None], None if eps is None else eps[None])[0]
 
     return convert
 

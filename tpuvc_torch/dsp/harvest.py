@@ -5,7 +5,9 @@ Interspeech 2017):
 
   1. decimate to 8 kHz; one band-pass channel per 1/40 octave between
      0.9 f0_floor and 1.1 f0_ceil (152 channels at 71-800 Hz), all in one
-     batched FFT (``filters.bandpass_bank_fft``);
+     batched FFT (``filters.bandpass_bank_fft``); ``channel_decim`` > 1
+     keeps every ``channel_decim``-th channel (the fast mode: 76 channels,
+     1/20 octave, at 2);
   2. per channel, DIO's four event-interval tracks on a 1 ms frame grid
      (``dio._bank_tracks``: the event kernel at stride fs_d/1000 = 8); a
      channel proposes its track mean where the four agree;
@@ -27,8 +29,6 @@ frames of a block, vectorised across all blocks, then a short loop over
 the blocks for the carry.  They equal the flat recurrences
 (``tests/test_f0.py::test_blocked_contour_recurrences_match_flat_scans``).
 The extension passes stay serial by data dependence: one step per frame.
-
-The JAX ``channel_decim`` > 1 (a coarser filterbank) is not ported.
 """
 
 from __future__ import annotations
@@ -298,10 +298,13 @@ def _smooth(f0: torch.Tensor) -> torch.Tensor:
 def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
             hop: int = DEFAULT_WORLD.hop,
             f0_floor: float = DEFAULT_WORLD.f0_floor,
-            f0_ceil: float = DEFAULT_WORLD.f0_ceil) -> torch.Tensor:
+            f0_ceil: float = DEFAULT_WORLD.f0_ceil,
+            channel_decim: int = 1) -> torch.Tensor:
     """f0 for every frame of x [B, T]; returns [B, T//hop + 1] in Hz,
-    0 = unvoiced.  WORLD's 1/40-octave bank (the JAX ``channel_decim``
-    of 1)."""
+    0 = unvoiced.  ``channel_decim`` > 1 runs the candidate bank at
+    1/(40/decim) octave (the band bank and the event tracks shrink by that
+    factor; the refinement's +-20% capture range pulls the surviving
+    candidates to the same frequencies); 1 is WORLD's 1/40-octave bank."""
     if fs % 1000:
         raise ValueError(f"harvest needs fs divisible by 1000, got {fs}")
     if (hop * 1000) % fs:
@@ -322,7 +325,7 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
     y = filters.decimate(x, ratio)
     y = y - torch.mean(y, dim=-1, keepdim=True)
 
-    bfs = _boundary_f0s(f0_floor, f0_ceil)
+    bfs = _boundary_f0s(f0_floor, f0_ceil)[::channel_decim]
     filtered = filters.bandpass_bank_fft(y, fs_d, bfs)      # [B, C, Td]
     n_ch = filtered.shape[1]
     n_1ms = (t * 1000) // fs + 1

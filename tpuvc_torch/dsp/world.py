@@ -39,12 +39,9 @@ def world_features(x: torch.Tensor,
     [B, N, fft_size//2 + 1]."""
     x = x.to(torch.float32)
     if cfg.f0_method == "harvest":
-        if cfg.harvest_channel_decim != 1:
-            raise NotImplementedError(
-                "tpuvc_torch: harvest_channel_decim > 1 (a coarser Harvest "
-                "filterbank) is not ported (ROADMAP.md); use 1")
         f0 = harvest(x, fs=cfg.fs, hop=cfg.hop, f0_floor=cfg.f0_floor,
-                     f0_ceil=cfg.f0_ceil)
+                     f0_ceil=cfg.f0_ceil,
+                     channel_decim=cfg.harvest_channel_decim)
     elif cfg.f0_method == "dio":
         f0 = stonemask(x, dio(x, fs=cfg.fs, hop=cfg.hop,
                               f0_floor=cfg.f0_floor, f0_ceil=cfg.f0_ceil),

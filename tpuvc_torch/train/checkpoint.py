@@ -23,15 +23,19 @@ import torch
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 
+def _steps(directory: str) -> list[int]:
+    """The steps of the checkpoints in ``directory``, oldest first."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.match,
+                                               os.listdir(directory)) if m)
+
+
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
-
-    def _steps(self) -> list[int]:
-        return sorted(int(m.group(1)) for m in map(
-            _NAME.match, os.listdir(self.directory)) if m)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
@@ -41,7 +45,7 @@ class Checkpointer:
         tmp = self._path(step) + ".tmp"
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, self._path(step))
-        for old in self._steps()[:-self.max_to_keep]:
+        for old in _steps(self.directory)[:-self.max_to_keep]:
             os.remove(self._path(old))
 
     def wait(self) -> None:
@@ -49,18 +53,27 @@ class Checkpointer:
 
     @property
     def latest_step(self) -> int | None:
-        steps = self._steps()
+        steps = _steps(self.directory)
         return steps[-1] if steps else None
 
     def restore_latest(self, state) -> int | None:
         """Load the newest checkpoint into ``state`` (its modules and
         optimizers stay on their device) and return its step; None when
         the directory holds none."""
-        step = self.latest_step
-        if step is None:
+        restored = latest_state_dict(self.directory)
+        if restored is None:
             return None
-        # onto the host first: the modules and optimizers copy each tensor
-        # to their own device, and Adam's step counts stay on the host
-        state.load_state_dict(torch.load(self._path(step), map_location="cpu",
-                                         weights_only=True))
-        return step
+        state.load_state_dict(restored[0])
+        return restored[1]
+
+
+def latest_state_dict(directory: str) -> tuple[dict, int] | None:
+    """The newest checkpoint's state dict, on the host, and its step; None
+    when ``directory`` holds none or does not exist (nothing is created)."""
+    steps = _steps(directory)
+    if not steps:
+        return None
+    # onto the host: a module or optimizer loading it copies each tensor to
+    # its own device, and Adam's step counts stay on the host
+    path = os.path.join(directory, f"{steps[-1]}.pt")
+    return torch.load(path, map_location="cpu", weights_only=True), steps[-1]

@@ -91,6 +91,23 @@ non-zero and prints no ``"ok"`` line):
                checkpoint (waveform SNR >= 30 dB, the same noise); and
                tpuvc_torch.cli.evaluate in its round-trip mode (MCD < 8 dB)
                and its conversion mode (every number finite).
+  8. parallel — the distributed surfaces (tpuvc_torch.parallel) over a
+               mesh of every card, or of the one card twice (a virtual
+               mesh: sharding, per-device threads and gather run for
+               real), counters zeroed and read around each call:
+               Converter.convert_batch(mesh=) on the default path at batch
+               128 x 4 s and the fused path at 32 x 4 s (each path's
+               kernels launch once per shard; sharded against unsharded
+               float32 waveforms SNR >= 40 dB; audio s/s of both, best of
+               3); MultiStreamConverter(mesh=) with 8 streams (SNR >= 40
+               dB against the unsharded ticks); analyze_sharded of 30 s
+               against analyze (relative error < 1e-3; DIO's K1 and K7
+               once, the other kernels once per block); a full-width
+               VAW-GAN step as two gloo ranks on the card against one
+               process (phase 6's rule; step times); a one-rank NCCL world
+               (init and all-reduce); cli.convert --all_pairs
+               --data_parallel on phase 6's checkpoint against phase 7's
+               files (SNR >= 40 dB).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -1565,6 +1582,327 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
     return rec
 
 
+# --- phase 8: parallel ----------------------------------------------------
+
+def parallel_mesh(dev):
+    """Every card, or the one device twice where there is one: a virtual
+    mesh, on which the sharding, the dispatch threads and the gather run
+    for real."""
+    import torch
+    from tpuvc_torch.parallel import mesh as mesh_lib
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return mesh_lib.make_mesh()
+    return mesh_lib.make_mesh(devices=[dev, dev])
+
+
+def snr_db(ref, got) -> float:
+    ref, got = (np.asarray(v, np.float64) for v in (ref, got))
+    return 10 * math.log10(np.sum(ref ** 2)
+                           / max(np.sum((got - ref) ** 2), 1e-30))
+
+
+def min_snr_db(refs, gots) -> float:
+    if len(refs) != len(gots) or any(np.shape(a) != np.shape(b)
+                                     for a, b in zip(refs, gots)):
+        raise AssertionError("outputs differ in number or shape")
+    return min(snr_db(a, b) for a, b in zip(refs, gots))
+
+
+def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
+                   tmp: str, batch: int = 128, dur_s: float = 4.0,
+                   fused_batch: int = 32, n_streams: int = 8,
+                   stream_s: float = 2.5, long_s: float = 30.0,
+                   arch_path: str = TRAIN_ARCH,
+                   step_batch: int | None = None,
+                   timed_steps: int = 5) -> dict:
+    """The port's distributed surfaces on ``dev``, launch counters zeroed
+    just before and read just after each call; any failure raises."""
+    import torch
+    from tpuvc_torch.cli import convert as cli_convert
+    from tpuvc_torch.convert.pipeline import Converter
+    from tpuvc_torch.convert.streaming import MultiStreamConverter
+    from tpuvc_torch.data.dataset import FrameDataset
+    from tpuvc_torch.data.normalizer import Tanhize
+    from tpuvc_torch.dsp.world import analyze
+    from tpuvc_torch.io.wav import read_wav
+    from tpuvc_torch.parallel import distributed, dryrun
+    from tpuvc_torch.parallel.frame_sharding import analyze_sharded
+    from tpuvc_torch.train import steps as steps_lib
+    from tpuvc_torch.utils.config import Architecture
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    mesh = parallel_mesh(dev)
+    n = mesh.size
+    where = f"a mesh of {n} ({', '.join(map(str, mesh.devices))})"
+    rec: dict = {"mesh": [str(d) for d in mesh.devices]}
+    names = lambda ids: [SPEAKERS[i] for i in ids]  # noqa: E731
+
+    def counted(fn):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0, read_counts()
+
+    def per_shard(name, one, dp, kernels, global_kernels=()):
+        """On the card: every kernel of the path launched by the unsharded
+        call, and the sharded call launched it once per shard (the global
+        stages' kernels once)."""
+        if not cuda:
+            return
+        bad = [k for k in kernels if one[k] == 0 or dp[k] != (
+            one[k] if k in global_kernels else n * one[k])]
+        if bad:
+            raise AssertionError(f"{name}: launches {dp} over {n} shards "
+                                 f"against {one} unsharded ({bad})")
+
+    # DP serving on the default and the fused path (one WorldConfig)
+    xs_all, src_all = batch_of(np.random.default_rng(8),
+                               max(batch, fused_batch), dur_s)
+    assets = make_assets(xs_all[:16], src_all[:16], path_cfg("default"), dev)
+    for path, b in (("default", batch), ("fused", fused_batch)):
+        cfg = path_cfg(path)
+        model = path_model(path, state, dev)
+        xs, src = xs_all[:b], src_all[:b]
+        trg = [(i * 7 + 3) % 10 for i in range(b)]
+        convs = {enc: Converter(model, assets, cfg, transfer_encoding=enc,
+                                device=dev) for enc in ("ulaw8", "float32")}
+
+        def call(m, enc="ulaw8"):
+            return convs[enc].convert_batch(xs, names(src), names(trg),
+                                            seed=0, mesh=m)
+
+        call(None)
+        call(mesh)                                    # replicas, warm-up
+        _, _, one = counted(lambda: call(None))
+        _, _, dp = counted(lambda: call(mesh))
+        per_shard(path, one, dp, PATHS[path][1])
+        def in_turn():
+            # the shards' work without the threads: one unsharded call
+            # per shard, one after the other
+            k = b // n
+            for i in range(n):
+                convs["ulaw8"].convert_batch(
+                    xs[i * k:(i + 1) * k], names(src[i * k:(i + 1) * k]),
+                    names(trg[i * k:(i + 1) * k]), seed=i * k)
+
+        lat = {"one": [], "dp": [], "in_turn": []}
+        for _ in range(3):
+            for k, fn in (("one", lambda: call(None)),
+                          ("dp", lambda: call(mesh)), ("in_turn", in_turn)):
+                lat[k].append(counted(fn)[1])
+        snr = min_snr_db(call(None, "float32"), call(mesh, "float32"))
+        rate = {k: b * dur_s / min(v) for k, v in lat.items()}
+        rec[path] = {"batch": b, "audio_s_per_s": rate, "latency_s": lat,
+                     "launches_one": one, "launches_dp": dp,
+                     "dp_vs_one_snr_db": snr}
+        say(f"[8 parallel] {path}: batch {b} x {dur_s:g} s over {where}: "
+            f"{rate['dp']:.2f} audio s per wall s sharded against "
+            f"{rate['one']:.2f} unsharded and {rate['in_turn']:.2f} for the "
+            f"{n} shards' calls in turn without threads, in the same run "
+            f"(best of 3; latencies "
+            f"{', '.join(f'{v:.4f}' for v in lat['dp'])} / "
+            f"{', '.join(f'{v:.4f}' for v in lat['one'])} / "
+            f"{', '.join(f'{v:.4f}' for v in lat['in_turn'])} s); kernel "
+            f"launches sharded {dp}, unsharded {one}; sharded vs unsharded "
+            f"float32 waveforms: SNR min {snr:.1f} dB (bound 40 dB)")
+        if not snr >= 40.0:
+            raise AssertionError(f"{path}: sharded and unsharded disagree: "
+                                 f"SNR {snr:.1f} dB")
+        del convs, model
+
+    # concurrent streams, each tick split over the mesh
+    conv = Converter(path_model("default", state, dev), assets,
+                     path_cfg("default"), device=dev)
+    rng = np.random.default_rng(9)
+    pairs = [(SPEAKERS[i % 10], SPEAKERS[(i + 3) % 10])
+             for i in range(n_streams)]
+    xs = [utterance(rng, i % 10, stream_s) for i in range(n_streams)]
+
+    def streams(m):
+        ms = MultiStreamConverter(conv, pairs, chunk_s=1.0, seed=3, mesh=m)
+        outs = [[ms.push(i, x)] for i, x in enumerate(xs)]
+        for i, tail in enumerate(ms.flush_all()):
+            outs[i].append(tail)
+        return [np.concatenate(o) for o in outs]
+
+    ys_one, wall_one, one = counted(lambda: streams(None))
+    ys_dp, wall_dp, dp = counted(lambda: streams(mesh))
+    missing = [k for k in DIO_KERNELS if cuda and dp[k] == 0]
+    snr = min_snr_db(ys_one, ys_dp)
+    rec["multistream"] = {"streams": n_streams, "wall_s": [wall_one,
+                                                           wall_dp],
+                          "launches_dp": dp, "dp_vs_one_snr_db": snr}
+    say(f"[8 parallel] MultiStreamConverter: {n_streams} streams of "
+        f"{stream_s:g} s in 1 s chunks over {where} in {wall_dp:.3f} s "
+        f"(unsharded {wall_one:.3f} s); kernel launches {dp}; per stream "
+        f"against the unsharded ticks: SNR min {snr:.1f} dB (bound 40 dB)")
+    if missing or not snr >= 40.0:
+        raise AssertionError(f"MultiStreamConverter over the mesh: missing "
+                             f"launches {missing}, SNR {snr:.1f} dB")
+    del conv
+
+    # one long utterance, its frames split over the mesh
+    cfg = path_cfg("default")
+    rng = np.random.default_rng(10)
+    x = np.concatenate([utterance(rng, i % 10, 3.0)
+                        for i in range(int(math.ceil(long_s / 3.0)))])
+    x = x[:int(long_s * FS)]
+    ref, wall_one, one = counted(lambda: analyze(x, cfg, device=dev))
+    got, wall_dp, dp = counted(lambda: analyze_sharded(x, mesh, cfg))
+    rels = {}
+    for name, a, r in zip(("f0", "sp", "ap"), got, ref):
+        if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"analyze_sharded {name}: shape "
+                                 f"{tuple(a.shape)} vs {tuple(r.shape)}, "
+                                 "or non-finite")
+        rels[name] = ((a - r).abs().max()
+                      / r.abs().max().clamp(min=1e-12)).item()
+    per_shard("analyze_sharded", one, dp, DIO_KERNELS, ("events", "scan"))
+    rec["analyze_sharded"] = {"seconds": long_s, "wall_s": [wall_one,
+                                                            wall_dp],
+                              "launches": dp, "rel_err": rels}
+    say(f"[8 parallel] analyze_sharded of {long_s:g} s "
+        f"({got.f0.shape[0]} frames) over {where} in {wall_dp:.3f} s "
+        f"(analyze {wall_one:.3f} s); kernel launches {dp} (analyze {one});"
+        f" relative error to analyze "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + " (bound 1e-3)")
+    if not all(v < 1e-3 for v in rels.values()):
+        raise AssertionError(f"analyze_sharded deviates: {rels}")
+
+    # two gloo ranks on one device against one process: a full VAW-GAN
+    # step of phase 6's corpus, in float32 (TF32 off)
+    arch = Architecture.load(os.path.join(ROOT, arch_path))
+    b = step_batch or arch.training.batch_size
+    ds = FrameDataset.from_bin_dir(corpus)
+    stream = ds.batches(b, seed=0, normalizer=Tanhize.from_etc(
+        os.path.join(corpus, "etc")))
+    xs, ys = zip(*(next(stream) for _ in range(arch.training.n_unroll + 1)))
+    batch_t = {"x_crit": torch.from_numpy(np.stack(xs[:-1])),
+               "y_crit": torch.from_numpy(np.stack(ys[:-1])),
+               "x_gen": torch.from_numpy(xs[-1]),
+               "y_gen": torch.from_numpy(ys[-1])}
+    noise = steps_lib.vawgan_noise(steps_lib.step_generator(0, 0, dev), b,
+                                   arch)
+    noise = steps_lib.VAWGANNoise(noise.z_crit.cpu(), noise.gp.cpu(),
+                                  noise.z_gen.cpu())
+    t0 = time.perf_counter()
+    ranks = dryrun.run_dp_step(
+        {"arch": arch.to_json(), "params": None, "seed": 0,
+         "batch": batch_t, "noise": noise, "device": dev.type,
+         "backend": "gloo", "timed_steps": timed_steps}, 2, tmp,
+        env=None if cuda else {"OMP_NUM_THREADS": "1"}, timeout=900.0)
+    wall_ranks = time.perf_counter() - t0
+    with dryrun.strict_float32():
+        st = dryrun.make_state(arch, None, 0, dev)
+        seen_g, seen_d = record_grads(st.opt_g), record_grads(st.opt_d)
+        m = {k: float(v) for k, v in dryrun.take_step(st, batch_t,
+                                                      noise).items()}
+        want = dryrun.step_params(st)
+        lr = arch.training.lr
+        for r in ranks[1:]:
+            if any(not torch.equal(p, ranks[0]["params"][mod][k])
+                   for mod, ps in r["params"].items()
+                   for k, p in ps.items()):
+                raise AssertionError("the two ranks' parameters differ")
+        got_m = ranks[0]["metrics"]
+        bad = [k for k in m if abs(got_m[k] - m[k])
+               > STEP_RTOL * abs(m[k]) + STEP_ATOL]
+        if bad:
+            raise AssertionError(f"2-rank step vs one process: {bad} "
+                                 f"differ ({got_m} vs {m})")
+        worst_g = params_agree(ranks[0]["params"]["gen"], want["gen"],
+                               named_grads(st.gen, seen_g), lr, PARAM_FRAC,
+                               PARAM_TOL)
+        worst_d = params_agree(ranks[0]["params"]["critic"],
+                               want["critic"], named_grads(st.critic,
+                                                           seen_d),
+                               lr, PARAM_FRAC, PARAM_TOL)
+        one_ms = step_ms(lambda: dryrun.take_step(st, batch_t, noise), dev,
+                         timed_steps)
+    rel = max(abs(got_m[k] - m[k]) / max(abs(m[k]), 1e-30) for k in m)
+    rec["train_2rank"] = {"batch": b, "devices": [r["device"]
+                                                 for r in ranks],
+                          "max_rel_err": rel, "gen_err_lr": worst_g,
+                          "critic_err_lr": worst_d,
+                          "step_ms_2rank": [r["step_ms"] for r in ranks],
+                          "step_ms_one": one_ms, "wall_s": wall_ranks}
+    say(f"[8 parallel] VAW-GAN step (batch {b}, float32, TF32 off) as two "
+        f"gloo ranks on {', '.join(r['device'] for r in ranks)} (each on "
+        f"its {b // 2} rows, gradients averaged by hand) against one "
+        f"process on {dev}: ranks equal; loss dict max relative error "
+        f"{rel:.3e} (bound rtol {STEP_RTOL:g} + atol {STEP_ATOL:g}); "
+        f"parameters, in lr, generator {worst_g['significant']:.3e} / "
+        f"{worst_g['rest']:.3e}, critic {worst_d['significant']:.3e} / "
+        f"{worst_d['rest']:.3e} (phase 6's rule); {timed_steps} more steps: "
+        f"{max(r['step_ms'] for r in ranks):.2f} ms per step on two ranks "
+        f"against {one_ms:.2f} ms in one process (the ranks' call "
+        f"{wall_ranks:.1f} s with start-up)")
+    del st
+
+    # a one-rank world on the card's own backend: init and all-reduce
+    port = dryrun.free_port()
+    env = {"COORDINATOR_ADDRESS": f"localhost:{port}", "NUM_PROCESSES": "1",
+           "PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.ensure_initialized("nccl" if cuda else "gloo")
+        pg = distributed.global_mesh(dev.type)
+        backend = torch.distributed.get_backend(pg.group)
+        t = torch.arange(1.0, 5.0, device=pg.devices[0])
+        (r,) = steps_lib.all_reduce_mean([t], pg.group)
+        sync()
+        ok = bool(torch.equal(r, t)) and pg.size == 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["one_rank"] = {"backend": backend, "device": str(pg.devices[0]),
+                       "ok": ok}
+    say(f"[8 parallel] one-rank world: backend {backend} on "
+        f"{pg.devices[0]}, all-reduce {'exact' if ok else 'WRONG'}")
+    if not ok:
+        raise AssertionError("one-rank all-reduce changed its input")
+
+    # the conversion CLI, sharded over every card, against phase 7's files
+    out_dp = os.path.join(tmp, "all_pairs_dp")
+    outs, wall, launches = counted(lambda: cli_convert.main(
+        ["--checkpoint", run, "--corpus", corpus, "--device", dev.type,
+         "--all_pairs", "--transfer-encoding", "ulaw8", "--data_parallel",
+         "--output", out_dp]))
+    ref_names = sorted(os.listdir(all_pairs_dir))
+    if sorted(os.path.basename(o) for o in outs) != ref_names:
+        raise AssertionError("cli.convert --data_parallel wrote other files "
+                             "than phase 7")
+    snr = min_snr_db([read_wav(os.path.join(all_pairs_dir, f))[0]
+                      for f in ref_names],
+                     [read_wav(os.path.join(out_dp, f))[0]
+                      for f in ref_names])
+    missing = [k for k in DIO_KERNELS if cuda and launches[k] == 0]
+    rec["cli_data_parallel"] = {"files": len(outs), "wall_s": wall,
+                                "launches": launches,
+                                "vs_phase7_snr_db": snr}
+    say(f"[8 parallel] cli.convert --all_pairs --data_parallel "
+        f"--transfer-encoding ulaw8: {len(outs)} files in {wall:.3f} s "
+        f"with start-up, over every card "
+        f"({torch.cuda.device_count() if cuda else 1}); kernel launches {launches}; against phase 7's files: SNR min "
+        f"{snr:.1f} dB (bound 40 dB)")
+    if missing or not snr >= 40.0:
+        raise AssertionError(f"cli.convert --data_parallel: missing "
+                             f"launches {missing}, SNR {snr:.1f} dB")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[8 parallel] phase 8 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def profile_call(fn, out_dir: str, fname: str,
                  phase: str = "5 rate") -> dict:
     """torch.profiler over one call: device time by kernel (table in
@@ -1697,13 +2035,21 @@ def main() -> int:
         convert = phase_convert(dev, train["run_dir"], train["corpus"],
                                 os.path.join(tmp, "converted"))
         convert["phase_s"] = time.perf_counter() - t0
-    say(f"[7 convert] phase 7 took {convert['phase_s']:.1f} s; card: {smi}")
+        say(f"[7 convert] phase 7 took {convert['phase_s']:.1f} s; card: "
+            f"{smi}")
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(dev, state, train["corpus"],
+                                  train["run_dir"],
+                                  os.path.join(tmp, "converted",
+                                               "all_pairs"), tmp)
+    say(f"[8 parallel] card: {smi}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
-                       "rate": rates, "train": train, "convert": convert},
+                       "rate": rates, "train": train, "convert": convert,
+                       "parallel": parallel},
                       f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))

@@ -246,9 +246,9 @@ def test_convert_cli_streaming_resembles_batch(setup, tmp_path):
 
 def test_convert_cli_refusals(setup):
     """tests/test_end2end.py's checks on the port's CLI: an unknown source
-    speaker (no wavs) or target raises; --data_parallel raises naming
-    ROADMAP M14 instead of being ignored; without --device cpu and
-    without a card the CLI raises instead of falling back."""
+    speaker (no wavs) or target raises; without --device cpu and without
+    a card the CLI raises instead of falling back, --data_parallel too
+    (its default mesh is every card)."""
     from tpuvc_torch.cli import convert as cli
     corpus, runs = setup
     common = ["--checkpoint", runs["VAE"][1], "--corpus", corpus]
@@ -258,12 +258,40 @@ def test_convert_cli_refusals(setup):
     with pytest.raises((KeyError, ValueError)):
         cli.main(common + ["--src", "SA", "--trg", "NOPE", "--device",
                            "cpu"])
-    with pytest.raises(NotImplementedError, match="M14"):
-        cli.main(common + ["--all_pairs", "--data_parallel", "--device",
-                           "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(common + ["--src", "SA", "--trg", "SB"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(common + ["--all_pairs", "--data_parallel"])
+
+
+@pytest.mark.parametrize("devices", [1, 4])
+def test_convert_cli_data_parallel(setup, tmp_path, monkeypatch, devices):
+    """--all_pairs --data_parallel --device cpu writes the files the CLI
+    writes without the flag, each within assert_waveforms_agree's bound
+    (PR 9's): on the CPU's one device (bit-equal), and on a virtual mesh
+    of 4 x cpu (12 conversions: one chunk of 12 rows, 3 per device)."""
+    from tpuvc_torch.cli import convert as cli
+    from tpuvc_torch.io.wav import read_wav
+    from tpuvc_torch.parallel import mesh as mesh_lib
+    corpus, runs = setup
+    if devices > 1:
+        real = mesh_lib.make_mesh
+        monkeypatch.setattr(mesh_lib, "make_mesh", lambda devices=None: real(
+            devices=devices * 4))
+    common = ["--checkpoint", runs["VAWGAN"][1], "--corpus", corpus,
+              "--all_pairs", "--device", "cpu"]
+    plain = cli.main(common + ["--output", str(tmp_path / "plain")])
+    dp = cli.main(common + ["--output", str(tmp_path / "dp"),
+                            "--data_parallel"])
+    assert [os.path.basename(o) for o in dp] == [
+        os.path.basename(o) for o in plain]
+    assert len(dp) == 4 * 1 * 3
+    for a, b in zip(plain, dp):
+        ref, got = read_wav(a)[0], read_wav(b)[0]
+        assert_waveforms_agree(ref, got)
+        if devices == 1:
+            assert np.array_equal(ref, got)
 
 
 def test_converter_441khz_input_and_chunking(setup):

@@ -490,6 +490,7 @@ def test_constants_match_jax():
     from tpuvc_torch.dsp import constants as pc
     names = [k for k in vars(pc) if k.isupper() and k != "DEFAULT_WORLD"]
     assert len(names) > 40
+    assert "MAX_ANALYSIS_WINDOW" in names      # frame sharding's halo bound
     for k in names:
         assert getattr(pc, k) == getattr(jc, k), k
     for fs, floor in ((16000, 71.0), (22050, 50.0), (8000, 100.0)):

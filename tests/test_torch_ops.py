@@ -1216,6 +1216,36 @@ def test_conv_kernel_matches_plain(cuda, stride, l, cin, cout, case, n):
 
 
 @pytest.mark.gpu
+def test_conv_kernel_on_every_card(cuda):
+    """K8's tensor-core route opts in to more than 48 KB of dynamic shared
+    memory, an attribute of each device's context: on every visible card,
+    first in turn and then from one thread per card (as a serving mesh
+    launches), the encoder's layers 2-5 agree with the plain version
+    (test_conv_kernel_matches_plain's rtol 1e-4 / atol 1e-4).  Needs two
+    cards or more."""
+    from tpuvc_torch.parallel import mesh as mesh_lib
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the attribute is per device")
+    shapes = [(171, 16, 32), (57, 32, 64), (19, 64, 128), (7, 128, 256)]
+    cases = [(_conv_inputs("uniform", 301, l, cin, cout))
+             for l, cin, cout in shapes]
+    refs = [conv.conv_ln_lrelu_plain(*c, 3, 0.2) for c in cases]
+
+    def on(i, d):
+        for c, ref in zip(cases, refs):
+            got = conv.conv_ln_lrelu(*(t.to(d) for t in c), 3, 0.2).cpu()
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=str(d))
+
+    mesh = mesh_lib.make_mesh()
+    n0 = conv.launches
+    for i, d in enumerate(mesh.devices):
+        on(i, d)
+    mesh_lib.run_shards(mesh, on)
+    assert conv.launches == n0 + 2 * mesh.size * len(shapes)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("l,c", [(19, 128), (57, 64), (171, 32), (5, 32)])
 def test_d2s_kernel_matches_plain(cuda, l, c, dtype):

@@ -649,7 +649,11 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     (convert) then runs on that run directory and corpus: all pairs, a
     decim-2 Harvest pair, a streamed pair, load_converter twice and both
     evaluate modes, every counter read 0 (the CPU takes the plain
-    versions)."""
+    versions).  Phase 8 (parallel) then runs on 2 x cpu at a small size:
+    sharded serving on both paths, 2 streams, a 1 s frame-sharded
+    analysis, a 2-rank gloo step of the small architecture against one
+    process, a one-rank gloo world and cli.convert --data_parallel
+    against phase 7's files."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     _, parch = _archs()
     arch_path = str(tmp_path / "small.json")
@@ -680,3 +684,20 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     assert conv["card_vs_cpu_snr_db"] >= 300.0      # CPU against CPU
     assert conv["evaluate_round_trip"]["result"]["mean"] < 8.0
     assert conv["evaluate_conversion"]["result"]["n_utterances"] == 2
+
+    par = chip_smoke.phase_parallel(
+        cpu, chip_smoke.build_state(), rec["corpus"], rec["run_dir"],
+        str(tmp_path / "converted" / "all_pairs"), str(tmp_path), batch=4,
+        dur_s=0.5, fused_batch=2, n_streams=2, stream_s=1.6, long_s=1.0,
+        arch_path=arch_path, step_batch=B, timed_steps=1)
+    assert par["mesh"] == ["cpu", "cpu"]
+    for path in ("default", "fused"):
+        assert par[path]["dp_vs_one_snr_db"] >= 40.0
+        assert par[path]["launches_dp"] == dict.fromkeys(
+            chip_smoke.counters(), 0)
+    assert par["analyze_sharded"]["rel_err"]["sp"] < 1e-3
+    assert par["train_2rank"]["devices"] == ["cpu", "cpu"]
+    assert par["train_2rank"]["max_rel_err"] < 1e-5
+    assert par["one_rank"] == {"backend": "gloo", "device": "cpu",
+                               "ok": True}
+    assert par["cli_data_parallel"]["files"] == 2 * 2 * 1

@@ -3,7 +3,7 @@
   python -m tpuvc_torch.cli.convert --src SF1 --trg TM3 \
       --checkpoint logdir/train/<ts> --corpus dataset/vcc2016 \
       [--file_pattern "*.wav"] [--output DIR] [--split test] [--all_pairs] \
-      [--streaming] [--device cuda|cpu]
+      [--streaming] [--data_parallel] [--device cuda|cpu]
 
 Port of ``tpuvc/cli/convert.py`` with the same flags, ``--device`` in
 place of ``--platform``: conversion runs on the CUDA card unless
@@ -12,9 +12,10 @@ checkpoint (``ckpt/<step>.pt``, written by ``tpuvc_torch.cli.train``),
 then converts every matching source-speaker utterance (analysis ->
 encode -> speaker-swap decode -> f0 transform -> synthesis) and writes
 <output>/<trg>-<utt>.wav, or <src>-to-<trg>-<utt>.wav for every ordered
-pair of speakers under ``--all_pairs``.  The JAX package's Orbax
-checkpoints cannot be read without JAX: the port neither reads nor writes
-them.
+pair of speakers under ``--all_pairs`` (with ``--data_parallel``, each
+batch split over every local card; on the CPU, its one device).  The JAX
+package's Orbax checkpoints cannot be read without JAX: the port neither
+reads nor writes them.
 """
 
 from __future__ import annotations
@@ -100,7 +101,8 @@ def main(argv: list[str] | None = None) -> list[str]:
                         "event tracks); 1 = exact WORLD layout")
     p.add_argument("--data_parallel", action="store_true",
                    help="shard batched (--all_pairs) conversion over all "
-                        "local devices: not ported yet (ROADMAP.md M14)")
+                        "local cards (one model replica and one shard of "
+                        "each batch per card)")
     p.add_argument("--transfer-encoding", default="float32",
                    choices=["float32", "ulaw8", "pcm12"],
                    help="device->host waveform encoding (ops/ulaw.py): "
@@ -108,10 +110,6 @@ def main(argv: list[str] | None = None) -> list[str]:
                         "written WAVs are 16-bit either way")
     add_device_flag(p)
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: multi-GPU conversion is not ported yet "
-            "(ROADMAP.md M14); run without it on one card")
     device = apply_device(args)
 
     from tpuvc_torch.io import corpus as corpus_io
@@ -144,7 +142,13 @@ def main(argv: list[str] | None = None) -> list[str]:
                     trgs.append(trg)
                     names.append(f"{src}-to-{trg}-{utt}.wav")
         outputs = []
-        ys = converter.convert_batch(xs, srcs, trgs, seed=args.seed)
+        mesh = None
+        if args.data_parallel:
+            from tpuvc_torch.parallel import mesh as mesh_lib
+            mesh = (mesh_lib.make_mesh() if device.type == "cuda"
+                    else mesh_lib.make_mesh(devices=[device]))
+        ys = converter.convert_batch(xs, srcs, trgs, seed=args.seed,
+                                     mesh=mesh)
         for name, y in zip(names, ys):
             out = os.path.join(out_dir, name)
             write_wav(out, y, converter.cfg.fs)

@@ -11,6 +11,13 @@ names another.  The run directory gets ``architecture.json``, the
 checkpoints (``ckpt/<step>.pt``) and ``events/metrics.jsonl``; a run
 started with ``--restore_from`` resumes from its newest checkpoint.
 Training takes the default route (the fused-kernel switches are refused).
+
+Data parallel over N cards: ``torchrun --nproc_per_node=N -m
+tpuvc_torch.cli.train ...`` (or the JAX side's ``COORDINATOR_ADDRESS`` /
+``NUM_PROCESSES`` / ``PROCESS_ID``).  Every process trains on its share of
+each global batch of ``batch_size`` rows; rank 0 makes the run directory
+and writes the checkpoints, the metrics and the corpus' normaliser.  As in
+the JAX CLI, there is no flag for it: the environment decides.
 """
 
 from __future__ import annotations
@@ -54,6 +61,15 @@ def main(argv: list[str] | None = None) -> str:
     args = p.parse_args(argv)
     device = apply_device(args)
 
+    import torch
+
+    from tpuvc_torch.parallel import distributed
+    mesh = None
+    if distributed.ensure_initialized(
+            backend="gloo" if device.type == "cpu" else None):
+        mesh = distributed.global_mesh(device.type)
+    lead = mesh is None or mesh.rank == 0
+
     if args.debug_nans:
         from tpuvc_torch.utils.profiling import enable_debug_checks
         enable_debug_checks()
@@ -74,25 +90,35 @@ def main(argv: list[str] | None = None) -> str:
     if overrides:
         arch = dataclasses.replace(arch, **overrides)
 
-    run_dir = make_run_dir(args.logdir, args.restore_from, args.msg)
-    arch.save(os.path.join(run_dir, "architecture.json"))
-
     ds = FrameDataset.from_bin_dir(args.corpus)
     etc = os.path.join(args.corpus, "etc")
-    try:
-        norm = Tanhize.from_etc(etc)
-    except FileNotFoundError:
-        norm = ds.fit_normalizer()
-        norm.save(etc)
+    run_dir = None
+    if lead:
+        run_dir = make_run_dir(args.logdir, args.restore_from, args.msg)
+        arch.save(os.path.join(run_dir, "architecture.json"))
+        try:
+            Tanhize.from_etc(etc)
+        except FileNotFoundError:
+            ds.fit_normalizer().save(etc)
+    if mesh is not None:
+        # rank 0's run directory, once its files are written
+        shared = [run_dir]
+        torch.distributed.broadcast_object_list(shared, src=0,
+                                                group=mesh.group)
+        run_dir = shared[0]
+    norm = Tanhize.from_etc(etc)
     t = arch.training
     steps = args.steps or max(1, t.epoch * t.num_frames_per_epoch
                               // t.batch_size)
     trainer = make_trainer(arch, run_dir, seed=args.seed,
                            use_tensorboard=not args.no_tensorboard,
-                           device=device)
-    print(f"[train] {arch.model}/{arch.trainer} run_dir={run_dir} "
-          f"frames={len(ds)} steps={steps}")
-    with trace(os.path.join(run_dir, "profile") if args.profile else None):
+                           device=device, mesh=mesh)
+    if lead:
+        print(f"[train] {arch.model}/{arch.trainer} run_dir={run_dir} "
+              f"frames={len(ds)} steps={steps}"
+              + (f" processes={mesh.size}" if mesh else ""))
+    with trace(os.path.join(run_dir, "profile")
+               if args.profile and lead else None):
         if args.resident:
             metrics = trainer.train_resident(norm.forward(ds.x), ds.y, steps,
                                              n_inner=args.resident)
@@ -101,8 +127,9 @@ def main(argv: list[str] | None = None) -> str:
                 ds.batches(t.batch_size, seed=args.seed, normalizer=norm),
                 steps)
     trainer.close()
-    print(f"[train] final metrics: "
-          f"{ {k: round(v, 4) for k, v in metrics.items()} }")
+    if lead:
+        print(f"[train] final metrics: "
+              f"{ {k: round(v, 4) for k, v in metrics.items()} }")
     return run_dir
 
 

@@ -13,7 +13,11 @@ out as a leading dimension.
 
 The JAX converter draws synthesis noise from ``jax.random`` keyed by each
 utterance's seed; here each utterance's noise comes from a
-``torch.Generator`` seeded with the same per-utterance seed.
+``torch.Generator`` seeded with the same per-utterance seed, so a row's
+noise does not depend on the rows beside it.  That makes the
+data-parallel mode of ``Converter.convert_batch`` (``mesh=``: each chunk
+split over a local device mesh, one model replica per device, one thread
+per shard) give every row what the unsharded call gives it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from tpuvc_torch.dsp.world import world_features
 from tpuvc_torch.io.wav import resample
 from tpuvc_torch.models.losses import reparameterize
 from tpuvc_torch.ops import ulaw
+from tpuvc_torch.parallel import mesh as mesh_lib
 from tpuvc_torch.utils.device import resolve
 
 
@@ -124,8 +129,7 @@ def make_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
 
 
 class Converter:
-    """Host-facing conversion API (the JAX ``Converter`` without the
-    device mesh)."""
+    """Host-facing conversion API (the JAX ``Converter``)."""
 
     # one call's audio-seconds budget: batch 128 x 4 s runs as one call
     # on the 80 GB card with either f0 method (peak 13.50 GiB with DIO,
@@ -153,6 +157,19 @@ class Converter:
         put = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, np.float32), device=self.device)
         self._xmin, self._xmax = put(assets.xmin), put(assets.xmax)
+        self._replicas: tuple | None = None     # (mesh, per-shard replicas)
+
+    def _replicas_for(self, mesh) -> list:
+        """Per shard of ``mesh``: (convert fn, xmin, xmax) on its device,
+        the model replicated once per distinct device; built on the first
+        call with this mesh."""
+        if self._replicas is None or self._replicas[0] != mesh:
+            models, xmins, xmaxs = (mesh_lib.replicated(mesh, v) for v in (
+                self.model, self._xmin, self._xmax))
+            self._replicas = (mesh, [
+                (make_batch_convert_fn(m, self.cfg), lo, hi)
+                for m, lo, hi in zip(models, xmins, xmaxs)])
+        return self._replicas[1]
 
     def _encode_transfer(self, y: torch.Tensor) -> torch.Tensor:
         if self.transfer_encoding == "ulaw8":
@@ -182,17 +199,27 @@ class Converter:
                     "analyzed for it)")
 
     def convert_batch(self, xs: list[np.ndarray], srcs: list[str],
-                      trgs: list[str], seed=0,
-                      fs: int | None = None) -> list[np.ndarray]:
+                      trgs: list[str], seed=0, fs: int | None = None,
+                      mesh=None) -> list[np.ndarray]:
         """Convert many utterances in batched calls.
 
         Utterances are padded to the largest common bucket; per-utterance
         source/target speakers may differ.  Requests beyond the per-call
         budget are split into equal chunks padded to one shape.  ``seed``
         is one int (utterance i uses seed + i) or one seed per utterance.
+
+        With ``mesh`` (a local ``tpuvc_torch.parallel.mesh`` data mesh)
+        each chunk is split into one shard per device, each converted on
+        its device by that device's model replica from a thread of its own,
+        and the shards are joined in row order: the budget grows with the
+        mesh, and the chunk size is a multiple of its size.
         """
         if not xs:
             return []
+        if mesh is not None and mesh.is_process_group:
+            raise ValueError("convert_batch serves over a local mesh "
+                             "(parallel.mesh.make_mesh): serving across "
+                             "processes is not supported")
         xs = [self._coerce_fs(x, fs) for x in xs]
         a = self.assets
         self._check_speaker_stats(*[a.speakers.index(s) for s in srcs],
@@ -200,16 +227,19 @@ class Converter:
         lens = [len(x) for x in xs]
         t_pad = max(1, -(-max(lens) // self.bucket)) * self.bucket
         n_samples = (t_pad // self.cfg.hop + 1) * self.cfg.hop
-        max_b = max(1, int(self.MAX_AUDIO_S_PER_CALL
+        n_dev = 1 if mesh is None else mesh.size
+        # the per-call budget is per device
+        max_b = max(1, int(self.MAX_AUDIO_S_PER_CALL * n_dev
                            / (t_pad / self.cfg.fs)))
         n = len(xs)
         n_chunks = -(-n // max_b)
         b = -(-n // n_chunks)
+        # a chunk divides over the mesh; rounding down keeps each device
+        # within its budget (the tail chunk pads up to b rows)
+        b = max(n_dev, (b // n_dev) * n_dev)
         si = np.array([a.speakers.index(s) for s in srcs], np.int64)
         ti = np.array([a.speakers.index(t) for t in trgs], np.int64)
-        dev = self.device
-        put = lambda v, dt=torch.float32: torch.as_tensor(  # noqa: E731
-            np.asarray(v), dtype=dt, device=dev)
+        reps = None if mesh is None else self._replicas_for(mesh)
         outs: list[np.ndarray] = []
         for lo in range(0, n, b):
             hi = min(lo + b, n)
@@ -223,15 +253,40 @@ class Converter:
                 seeds = np.asarray(seed, np.int64)[idx]
             else:
                 seeds = seed + idx
-            y = self._fn(put(np.stack(rows)), put(ti[idx], torch.int64),
-                         self._xmin, self._xmax,
-                         put(a.f0_mu[si[idx]]), put(a.f0_sigma[si[idx]]),
-                         put(a.f0_mu[ti[idx]]), put(a.f0_sigma[ti[idx]]),
-                         synthesis_noise(seeds, n_samples, dev))
-            y = self._decode_transfer(
-                self._encode_transfer(y).cpu().numpy(), n_samples)
+            args = (np.stack(rows), ti[idx], a.f0_mu[si[idx]],
+                    a.f0_sigma[si[idx]], a.f0_mu[ti[idx]],
+                    a.f0_sigma[ti[idx]])
+            if mesh is None:
+                y = self._convert_rows(self._fn, self.device, self._xmin,
+                                       self._xmax, args, seeds, n_samples)
+            else:
+                shards = mesh_lib.shard_batch(mesh, *args)
+                k = b // n_dev
+
+                def shard(i, d):
+                    fn, xmin, xmax = reps[i]
+                    return self._convert_rows(
+                        fn, d, xmin, xmax, [v[i] for v in shards],
+                        seeds[i * k:(i + 1) * k], n_samples)
+
+                y = np.concatenate(mesh_lib.run_shards(mesh, shard))
             outs.extend(y[i, :lens[lo + i]] for i in range(hi - lo))
         return outs
+
+    def _convert_rows(self, fn, dev, xmin, xmax, args, seeds,
+                      n_samples: int) -> np.ndarray:
+        """One call of the batched converter on ``dev`` over the rows
+        ``args`` = (waveforms, target ids, source and target f0 means and
+        deviations; arrays, or tensors on ``dev``) with the host ``seeds``
+        of their noise; the decoded waveforms [rows, n_samples]."""
+        xs, ti, mu_s, sd_s, mu_t, sd_t = args
+        put = lambda v, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            v, dtype=dt, device=dev)
+        y = fn(put(xs), put(ti, torch.int64), xmin, xmax, put(mu_s),
+               put(sd_s), put(mu_t), put(sd_t),
+               synthesis_noise(seeds, n_samples, dev))
+        return self._decode_transfer(self._encode_transfer(y).cpu().numpy(),
+                                     n_samples)
 
     def convert(self, x: np.ndarray, src: str, trg: str, seed: int = 0,
                 fs: int | None = None) -> np.ndarray:

@@ -131,15 +131,17 @@ class MultiStreamConverter:
     what makes the batching real).
 
     Per-stream output matches a solo StreamingConverter to batching
-    rounding (tests/test_streaming.py).  The JAX version's ``mesh``
-    (sharding the stream axis over devices) waits for the port's
-    multi-GPU work.
+    rounding (tests/test_streaming.py).
     """
 
     def __init__(self, converter: Converter, pairs, chunk_s: float = 1.0,
-                 halo_s: float = 0.192, seed: int = 0):
+                 halo_s: float = 0.192, seed: int = 0, mesh=None):
+        """``mesh``: a local ``tpuvc_torch.parallel.mesh`` data mesh; each
+        tick's batch is split over its devices (``Converter.convert_batch``
+        with ``mesh``), so N devices carry N times the streams."""
         self.conv = converter
         self.pairs = list(pairs)
+        self.mesh = mesh
         self.streams = [
             StreamingConverter(converter, src, trg, chunk_s=chunk_s,
                                halo_s=halo_s, seed=seed + 7919 * i)
@@ -157,7 +159,7 @@ class MultiStreamConverter:
         ys = self.conv.convert_batch(
             rows, [self.pairs[i][0] for i in idx],
             [self.pairs[i][1] for i in idx],
-            seed=np.asarray(seeds, np.int32))
+            seed=np.asarray(seeds, np.int32), mesh=self.mesh)
         for j, i in enumerate(ready):
             st = self.streams[i]
             st._pos += 1

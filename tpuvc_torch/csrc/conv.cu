@@ -652,14 +652,12 @@ cudaError_t launch_tc(const float* x, const float* w, float* w_pairs,
     split_tf32_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0,
                         stream>>>(w, w_pairs, k * cin, COUT);
     auto kern = conv_ln_lrelu_tc_kernel<COUT>;
-    static bool configured = false;            // once per instantiation
-    if (!configured) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            T::SMEM_BYTES);
-        if (e != cudaSuccess) return e;
-        configured = true;
-    }
+    // the opt-in above 48 KB belongs to the current device's context, and
+    // a process may drive several cards from several threads: set it on
+    // every launch (a host call of a few microseconds) rather than once
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
     const long long m_total = (long long)n * l_out;
     const int blocks = (int)((m_total + T::BM - 1) / T::BM);
     kern<<<blocks, T::kThreads, T::SMEM_BYTES, stream>>>(

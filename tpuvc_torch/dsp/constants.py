@@ -94,6 +94,11 @@ D4C_FLOOR_DB = -60.0
 D4C_CEIL_DB = -1e-12
 D4C_UNVOICED_PLACEHOLDER_F0 = 150.0
 SAFE_GUARD_MINIMUM = 1e-12
+# the NCCF variant's autocorrelation headroom, and the bound of every
+# stage's analysis window: the halo of frame-sharded analysis
+# (parallel/frame_sharding.py) derives from it
+D4C_FFT_SIZE = 2048
+MAX_ANALYSIS_WINDOW = D4C_FFT_SIZE
 
 
 def d4c_fft_size(fs: int, f0_floor: float = F0_FLOOR) -> int:

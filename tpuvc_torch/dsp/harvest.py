@@ -29,6 +29,12 @@ frames of a block, vectorised across all blocks, then a short loop over
 the blocks for the carry.  They equal the flat recurrences
 (``tests/test_f0.py::test_blocked_contour_recurrences_match_flat_scans``).
 The extension passes stay serial by data dependence: one step per frame.
+
+The five stages carry ``torch.profiler.record_function`` ranges named as
+the JAX package's ``jax.named_scope``s: ``hv_band_bank`` (1),
+``hv_event_tracks`` (2), ``hv_merge`` (the channel candidates and 3),
+``hv_refine`` (4) and ``hv_contour`` (5), so a profile attributes its
+time per stage; outside a profile they cost one context manager each.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from tpuvc_torch.dsp import filters
 from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, HARVEST_BAND_GATE_HIGH,
@@ -326,38 +333,45 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
     y = y - torch.mean(y, dim=-1, keepdim=True)
 
     bfs = _boundary_f0s(f0_floor, f0_ceil)[::channel_decim]
-    filtered = filters.bandpass_bank_fft(y, fs_d, bfs)      # [B, C, Td]
+    with record_function("hv_band_bank"):
+        filtered = filters.bandpass_bank_fft(y, fs_d, bfs)  # [B, C, Td]
     n_ch = filtered.shape[1]
     n_1ms = (t * 1000) // fs + 1
-    tracks = _bank_tracks(filtered.reshape(bsz * n_ch, -1), fs_d, n_1ms,
-                          fs_d // 1000).reshape(bsz, n_ch, 4, n_1ms)
+    with record_function("hv_event_tracks"):
+        tracks = _bank_tracks(filtered.reshape(bsz * n_ch, -1), fs_d, n_1ms,
+                              fs_d // 1000).reshape(bsz, n_ch, 4, n_1ms)
     del filtered
-    cand, dev = _channel_candidates(
-        tracks, torch.tensor(bfs, dtype=torch.float32, device=x.device),
-        floor, ceil)
-    del tracks
-    merged, _ = _merge_channels(cand, dev)                  # [B, N, K]
+    with record_function("hv_merge"):
+        cand, dev = _channel_candidates(
+            tracks, torch.tensor(bfs, dtype=torch.float32, device=x.device),
+            floor, ceil)
+        del tracks
+        merged, _ = _merge_channels(cand, dev)              # [B, N, K]
 
     win = harvest_refine_window(fs, f0_floor)
-    seg = frame_signal(x, fs // 1000, win, n_1ms).reshape(bsz * n_1ms, win)
-    f0_1 = torch.where(merged > 0.0, torch.clamp(merged, min=floor), 0.0)
-    refined, scores = refine_score(seg, f0_1.reshape(bsz * n_1ms, _K), fs,
-                                   floor, HARVEST_REFINE_LIMIT)
-    del seg
-    refined = refined.reshape(bsz, n_1ms, _K)
-    scores = scores.reshape(bsz, n_1ms, _K)
+    with record_function("hv_refine"):
+        seg = frame_signal(x, fs // 1000, win, n_1ms).reshape(bsz * n_1ms,
+                                                              win)
+        f0_1 = torch.where(merged > 0.0, torch.clamp(merged, min=floor), 0.0)
+        refined, scores = refine_score(seg, f0_1.reshape(bsz * n_1ms, _K),
+                                       fs, floor, HARVEST_REFINE_LIMIT)
+        del seg
+        refined = refined.reshape(bsz, n_1ms, _K)
+        scores = scores.reshape(bsz, n_1ms, _K)
 
-    best = torch.argmax(scores, dim=-1, keepdim=True)
-    f0 = torch.gather(refined, -1, best)[..., 0]
-    f0 = torch.where(torch.gather(scores, -1, best)[..., 0] > 0.0, f0, 0.0)
-    f0 = _guided_reselect(f0, refined, scores)
-    f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
-    f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
-    f0 = _extend_scan(f0, refined, HARVEST_EXTENSION_ALLOWED)
-    f0 = _extend_scan(f0.flip(-1), refined.flip(1),
-                      HARVEST_EXTENSION_ALLOWED).flip(-1)
-    f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
-    f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
-    f0 = _smooth(f0)
+    with record_function("hv_contour"):
+        best = torch.argmax(scores, dim=-1, keepdim=True)
+        f0 = torch.gather(refined, -1, best)[..., 0]
+        f0 = torch.where(torch.gather(scores, -1, best)[..., 0] > 0.0, f0,
+                         0.0)
+        f0 = _guided_reselect(f0, refined, scores)
+        f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
+        f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
+        f0 = _extend_scan(f0, refined, HARVEST_EXTENSION_ALLOWED)
+        f0 = _extend_scan(f0.flip(-1), refined.flip(1),
+                          HARVEST_EXTENSION_ALLOWED).flip(-1)
+        f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
+        f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
+        f0 = _smooth(f0)
     step = (hop * 1000) // fs                                # ms per frame
     return f0[:, ::step][:, :n_out].contiguous()

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 
@@ -47,6 +48,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
 
@@ -119,6 +121,17 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def count(module: str, counter: str) -> None:
+    """Add one to the launch counter ``counter`` of the wrapper module
+    ``module`` (a ``__name__``).  The counters stay plain module integers
+    that a caller reads and sets to 0; the increment is a read-modify-write,
+    so it runs under a lock: a device mesh launches from a thread per
+    device."""
+    mod = sys.modules[module]
+    with _count_lock:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def launch(name: str, device, *args) -> None:

@@ -48,7 +48,6 @@ def d2s_ln_lrelu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """[N, L, c*s] -> LayerNorm + LeakyReLU of [N, L*s, c], in x's dtype
     (float32 or bfloat16).  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (or raises)."""
-    global launches
     if x.dim() != 3 or s < 1 or x.shape[2] % s:
         raise ValueError(f"x must be [N, L, c*s] with s | c*s, got "
                          f"{tuple(x.shape)}, s={s}")
@@ -73,5 +72,5 @@ def d2s_ln_lrelu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.launch("tpuvc_d2s_ln_lrelu", x.device, x.data_ptr(), g.data_ptr(),
                   b.data_ptr(), out.data_ptr(), n * length * s, c,
                   _DTYPES[x.dtype], float(slope), float(eps))
-    launches += 1
+    _build.count(__name__, "launches")
     return out

@@ -111,7 +111,6 @@ def event_block_pairs(bank: torch.Tensor, stride: int) -> torch.Tensor:
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises).
     """
-    global launches
     if stride < 3:
         raise ValueError(f"event stage needs stride >= 3, got {stride}")
     if bank.dim() != 2 or bank.dtype != torch.float32:
@@ -126,7 +125,7 @@ def event_block_pairs(bank: torch.Tensor, stride: int) -> torch.Tensor:
     out = torch.empty((r, 16, nb), dtype=torch.float32, device=bank.device)
     _build.launch("tpuvc_event_block_pairs", bank.device, bank.data_ptr(),
                   out.data_ptr(), r, t, stride, nb)
-    launches += 1
+    _build.count(__name__, "launches")
     return out
 
 
@@ -176,7 +175,6 @@ def top2_block_scans(pairs: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises).
     """
-    global launches_scan
     if pairs.dim() != 3 or pairs.shape[1] != 16 or (
             pairs.dtype != torch.float32):
         raise ValueError(f"pairs must be [R, 16, nb] float32, got "
@@ -189,5 +187,5 @@ def top2_block_scans(pairs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(pairs)
     _build.launch("tpuvc_top2_block_scans", pairs.device, pairs.data_ptr(),
                   out.data_ptr(), r, nb)
-    launches_scan += 1
+    _build.count(__name__, "launches_scan")
     return out

@@ -187,7 +187,6 @@ def harmonic_dft(seg: torch.Tensor, f0: torch.Tensor, fs: int,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises).
     """
-    global launches
     if (seg.dim() != 2 or f0.dim() != 2 or seg.shape[0] != f0.shape[0]
             or seg.dtype != torch.float32 or f0.dtype != torch.float32
             or seg.shape[1] % 2):
@@ -216,7 +215,7 @@ def harmonic_dft(seg: torch.Tensor, f0: torch.Tensor, fs: int,
                   dim_.data_ptr() if with_if else None,
                   en.data_ptr(), n, k_slots, w, float(fs), int(fold),
                   int(with_if))
-    launches += 1
+    _build.count(__name__, "launches")
     return xre, xim, dre, dim_, en
 
 
@@ -278,7 +277,6 @@ def refine_score(seg: torch.Tensor, f0: torch.Tensor, fs: int, floor: float,
     empty and rejected slots.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel (or raises).
     """
-    global launches_refine
     if (seg.dim() != 2 or f0.dim() != 2 or seg.shape[0] != f0.shape[0]
             or seg.dtype != torch.float32 or f0.dtype != torch.float32
             or seg.shape[1] % 2):
@@ -299,5 +297,5 @@ def refine_score(seg: torch.Tensor, f0: torch.Tensor, fs: int, floor: float,
     _build.launch("tpuvc_refine_score", seg.device, seg.data_ptr(),
                   f0.data_ptr(), refined.data_ptr(), score.data_ptr(), n,
                   f0.shape[1], w, float(fs), float(floor), float(limit))
-    launches_refine += 1
+    _build.count(__name__, "launches_refine")
     return refined, score

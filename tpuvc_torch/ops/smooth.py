@@ -84,7 +84,6 @@ def box_smooth(ps: torch.Tensor, width: torch.Tensor, fs: int,
     Widths are clamped to ``max_width_hz``.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (or raises).
     """
-    global launches
     half = fft_size // 2 + 1
     if (ps.dim() != 2 or ps.shape[1] != half or width.shape != (ps.shape[0],)
             or ps.dtype != torch.float32 or width.dtype != torch.float32):
@@ -104,5 +103,5 @@ def box_smooth(ps: torch.Tensor, width: torch.Tensor, fs: int,
     _build.launch("tpuvc_box_smooth", ps.device, ps.data_ptr(),
                   width.data_ptr(), out.data_ptr(), ps.shape[0], half, k,
                   float(fs / fft_size), float(max_width_hz))
-    launches += 1
+    _build.count(__name__, "launches")
     return out

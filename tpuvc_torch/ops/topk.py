@@ -53,7 +53,6 @@ def topk_sum(ps: torch.Tensor, kk: int) -> torch.Tensor:
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises).
     """
-    global launches
     if ps.dim() != 2 or ps.dtype != torch.float32:
         raise ValueError(f"topk_sum needs ps [N, C] float32, got "
                          f"{tuple(ps.shape)} {ps.dtype}")
@@ -70,5 +69,5 @@ def topk_sum(ps: torch.Tensor, kk: int) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=ps.device)
     _build.launch("tpuvc_topk_sum", ps.device, ps.data_ptr(), out.data_ptr(),
                   n, c, kk)
-    launches += 1
+    _build.count(__name__, "launches")
     return out

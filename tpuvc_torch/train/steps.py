@@ -26,6 +26,18 @@ the device, drawing each minibatch there (uniform with replacement, as
 ``_sample_rows``); it reads nothing back to the host inside the loop, and
 returns the last step's metrics as device tensors.
 
+Data parallel (a process-group mesh, one process per card, the
+counterpart of the JAX trainer's mesh): every process steps on its own
+rows of the global batch, and each update all-reduces its gradients by
+hand (a SUM divided by the world size, one collective per update), so
+every process applies the mean of equal shards' mean gradients: the
+global batch's, as the JAX mesh's psum gives it.  DDP does not fit:
+its reducer hooks ``.backward()``, and these updates take their gradients
+with ``torch.autograd.grad`` (the critic's through a double backward).
+Every process draws the global batch's rows and noise from the same
+generator and keeps its own (``local_rows``), so the world takes the step
+one process takes on the whole batch.
+
 Training takes the default route only.  The JAX package has no gradient
 through its fused kernels (``jax.grad`` of K8 ``conv_ln_lrelu`` cannot be
 linearized, and neither Pallas kernel has a ``custom_vjp``), so an
@@ -44,6 +56,7 @@ import torch
 from tpuvc_torch.models import losses
 from tpuvc_torch.models.params import init_critic_params, init_params
 from tpuvc_torch.models.vae import CVAE, Critic, make_model
+from tpuvc_torch.parallel.mesh import local_rows
 from tpuvc_torch.train.state import VAETrainState, VAWGANTrainState
 from tpuvc_torch.utils.config import Architecture
 from tpuvc_torch.utils.device import resolve
@@ -133,6 +146,11 @@ class VAWGANNoise:
     gp: torch.Tensor       # [n_unroll, B, 1] U[0, 1): their penalty mixes
     z_gen: torch.Tensor    # [B, z_dim] N(0, 1): the generator update's
 
+    def rows(self, sl: slice) -> "VAWGANNoise":
+        """The noise of batch rows ``sl``."""
+        return VAWGANNoise(self.z_crit[:, sl], self.gp[:, sl],
+                           self.z_gen[sl])
+
 
 def vae_noise(gen: torch.Generator, batch: int,
               arch: Architecture) -> torch.Tensor:
@@ -174,12 +192,27 @@ def generator_loss(gen: CVAE, critic: Critic, x: torch.Tensor,
     return loss, {"D_KL": kld, "logP": logp, "l_G": loss, "adv": adv}
 
 
+def all_reduce_mean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """The mean of ``tensors`` over the processes of ``group``: one SUM
+    all-reduce of their concatenation, divided by the world size."""
+    dist = torch.distributed
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    return [v.view_as(t) for v, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def _update(opt: torch.optim.Optimizer, module: torch.nn.Module,
-            loss: torch.Tensor) -> None:
+            loss: torch.Tensor, group=None) -> None:
     """One optimizer step on ``module``'s parameters along the gradient of
-    ``loss`` w.r.t. them only."""
+    ``loss`` w.r.t. them only; with a process ``group``, along that
+    gradient's mean over the group."""
     params = list(module.parameters())
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    grads = torch.autograd.grad(loss, params)
+    if group is not None:
+        grads = all_reduce_mean(list(grads), group)
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -190,32 +223,35 @@ def _detach(m: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def vae_step(state: VAETrainState, x: torch.Tensor, y: torch.Tensor,
-             eps: torch.Tensor) -> dict[str, torch.Tensor]:
+             eps: torch.Tensor, group=None) -> dict[str, torch.Tensor]:
     """One VAE update with the noise ``eps`` [B, z_dim]; returns
-    {D_KL, logP, loss} as device tensors."""
+    {D_KL, logP, loss} of these rows as device tensors.  With a process
+    ``group``, the rows are this process's share of the global batch and
+    the gradient is the group's mean."""
     metrics, _ = state.model.loss(x, y, eps)
-    _update(state.opt, state.model, metrics["loss"])
+    _update(state.opt, state.model, metrics["loss"], group)
     state.step += 1
     return _detach(metrics)
 
 
 def vawgan_step(state: VAWGANTrainState, x_crit: torch.Tensor,
                 y_crit: torch.Tensor, x_gen: torch.Tensor,
-                y_gen: torch.Tensor, noise: VAWGANNoise
+                y_gen: torch.Tensor, noise: VAWGANNoise, group=None
                 ) -> dict[str, torch.Tensor]:
     """One VAW-GAN step: a critic update on each of the ``n_unroll``
     batches ``x_crit`` [n_unroll, B, D], then a generator update on
     ``x_gen`` [B, D].  Returns {W_dist, GP, l_D} of the last critic update
-    and {D_KL, logP, l_G, adv} as device tensors."""
+    and {D_KL, logP, l_G, adv} as device tensors.  With a process
+    ``group``, as ``vae_step``."""
     t = state.gen.arch.training
     for k in range(x_crit.shape[0]):
         loss, d_aux = critic_loss(state.gen, state.critic, x_crit[k],
                                   y_crit[k], noise.z_crit[k], noise.gp[k],
                                   t.gp_lambda)
-        _update(state.opt_d, state.critic, loss)
+        _update(state.opt_d, state.critic, loss, group)
     loss, g_aux = generator_loss(state.gen, state.critic, x_gen, y_gen,
                                  noise.z_gen, t.alpha)
-    _update(state.opt_g, state.gen, loss)
+    _update(state.opt_g, state.gen, loss, group)
     state.step += 1
     return _detach({**d_aux, **g_aux})
 
@@ -223,35 +259,43 @@ def vawgan_step(state: VAWGANTrainState, x_crit: torch.Tensor,
 # --- the resident path ----------------------------------------------------
 
 def vae_multistep(state: VAETrainState, data: torch.Tensor,
-                  labels: torch.Tensor, n_inner: int,
-                  seed: int) -> dict[str, torch.Tensor]:
+                  labels: torch.Tensor, n_inner: int, seed: int,
+                  mesh=None) -> dict[str, torch.Tensor]:
     """``n_inner`` VAE steps over the device-resident table ``data`` [F, D]
-    / ``labels`` [F]; the last step's metrics."""
+    / ``labels`` [F]; the last step's metrics.  On a process-group
+    ``mesh`` each process draws the global rows and noise and steps on its
+    share."""
     arch = state.model.arch
     b = arch.training.batch_size
+    mine = local_rows(mesh, b)
+    group = None if mesh is None else mesh.group
     for _ in range(n_inner):
         g = step_generator(seed, state.step, data.device)
         idx = torch.randint(0, data.shape[0], (b,), generator=g,
-                            device=data.device)
+                            device=data.device)[mine]
         metrics = vae_step(state, data[idx], labels[idx],
-                           vae_noise(g, b, arch))
+                           vae_noise(g, b, arch)[mine], group)
     return metrics
 
 
 def vawgan_multistep(state: VAWGANTrainState, data: torch.Tensor,
-                     labels: torch.Tensor, n_inner: int,
-                     seed: int) -> dict[str, torch.Tensor]:
+                     labels: torch.Tensor, n_inner: int, seed: int,
+                     mesh=None) -> dict[str, torch.Tensor]:
     """``n_inner`` VAW-GAN steps over the device-resident table; each step
-    draws ``n_unroll`` critic batches and one generator batch."""
+    draws ``n_unroll`` critic batches and one generator batch (on a
+    process-group ``mesh``, as ``vae_multistep``)."""
     arch = state.gen.arch
     t = arch.training
     b = t.batch_size
+    mine = local_rows(mesh, b)
+    group = None if mesh is None else mesh.group
     for _ in range(n_inner):
         g = step_generator(seed, state.step, data.device)
         ic = torch.randint(0, data.shape[0], (t.n_unroll, b), generator=g,
-                           device=data.device)
+                           device=data.device)[:, mine]
         ig = torch.randint(0, data.shape[0], (b,), generator=g,
-                           device=data.device)
+                           device=data.device)[mine]
         metrics = vawgan_step(state, data[ic], labels[ic], data[ig],
-                              labels[ig], vawgan_noise(g, b, arch))
+                              labels[ig],
+                              vawgan_noise(g, b, arch).rows(mine), group)
     return metrics

@@ -1,13 +1,24 @@
 """Trainers driving the training steps (reference trainer/{vae,vawgan}.py).
 
-Port of ``tpuvc/train/trainer.py`` without its ``mesh``: one device.  A
-trainer owns the training state, a checkpointer with auto-resume and the
-metrics writer.  ``train`` feeds host batches one step at a time;
-``train_resident`` uploads the frame table once and runs ``n_inner`` steps
-per call with minibatches drawn on the device.  Metrics are read back to
-the host only at log points, checkpoints are written at save points and at
-the end.  The default device is the CUDA card; a trainer raises without one
-unless given ``device="cpu"``.
+Port of ``tpuvc/train/trainer.py``.  A trainer owns the training state, a
+checkpointer with auto-resume and the metrics writer.  ``train`` feeds
+host batches one step at a time; ``train_resident`` uploads the frame
+table once and runs ``n_inner`` steps per call with minibatches drawn on
+the device.  Metrics are read back to the host only at log points,
+checkpoints are written at save points and at the end.  The default device
+is the CUDA card; a trainer raises without one unless given
+``device="cpu"``.
+
+``mesh`` is the JAX trainer's data mesh in PyTorch's idiom: a
+process-group mesh (``parallel.distributed.global_mesh``, one process per
+card), the default whenever a process group is initialized.  Every process
+then reads the same global batch stream (same seed, same ``skip`` on
+resume) and steps on its rows of each batch (axis 0 of the generator's
+batch, axis 1 of the critic's), the gradients averaged over the world
+(``train/steps.py``); every process restores the checkpoint, only rank 0
+writes checkpoints and metrics, and the logged metrics are the world's
+mean.  A local mesh of several devices is refused: training takes one
+process per card.
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from tpuvc_torch.parallel import distributed
+from tpuvc_torch.parallel.mesh import local_rows
 from tpuvc_torch.train import steps as steps_lib
 from tpuvc_torch.train.checkpoint import Checkpointer
 from tpuvc_torch.train.summaries import MetricsWriter
@@ -44,16 +57,53 @@ def _table_fingerprint(a: np.ndarray) -> tuple:
     return (obj_id, a.shape, str(a.dtype), flat[idx].tobytes())
 
 
+def _trainer_mesh(mesh, device: torch.device):
+    """The trainer's process-group mesh, or None for one device: ``mesh``
+    when given, else the world's when a process group is initialized."""
+    if mesh is None and torch.distributed.is_initialized():
+        mesh = distributed.global_mesh(device.type)
+    if mesh is None:
+        return None
+    if not mesh.is_process_group:
+        if mesh.size > 1:
+            raise ValueError(
+                f"a local mesh of {mesh.size} devices cannot train: start "
+                "one process per card (torchrun --nproc_per_node=N -m "
+                "tpuvc_torch.cli.train ...) and pass "
+                "parallel.distributed.global_mesh()")
+        return None
+    if mesh.devices[0].type != device.type:
+        raise ValueError(f"the mesh's device {mesh.devices[0]} is not a "
+                         f"{device.type} device")
+    if mesh.size == 1:
+        return None
+    return mesh
+
+
 class _BaseTrainer:
     def __init__(self, arch: Architecture, run_dir: str, seed: int = 0,
                  use_tensorboard: bool = True,
-                 device: torch.device | str = "cuda"):
-        self.device = resolve(device)
+                 device: torch.device | str = "cuda", mesh=None):
+        """``mesh``: a process-group mesh to train data parallel over (by
+        default the world's when a process group is initialized); the
+        trainer then runs on the mesh's device for this process."""
+        device = resolve(device)
+        self.mesh = _trainer_mesh(mesh, device)
+        if self.mesh is not None:
+            device = self.mesh.devices[0]
+            if arch.training.batch_size % self.mesh.size:
+                raise ValueError(
+                    f"batch_size {arch.training.batch_size} does not divide "
+                    f"over {self.mesh.size} processes")
+        self.device = device
         self.arch = arch
         self.run_dir = run_dir
         self.seed = seed
-        self.writer = MetricsWriter(os.path.join(run_dir, "events"),
-                                    use_tensorboard=use_tensorboard)
+        # rank 0 writes the checkpoints and the metrics; every rank reads
+        self.lead = self.mesh is None or self.mesh.rank == 0
+        self.writer = (MetricsWriter(os.path.join(run_dir, "events"),
+                                     use_tensorboard=use_tensorboard)
+                       if self.lead else None)
         self.ckpt = Checkpointer(os.path.join(run_dir, "ckpt"))
         self.state: Any = None
         # the device copy of the resident table, keyed by the host arrays'
@@ -82,15 +132,45 @@ class _BaseTrainer:
                 next(itertools.islice(batches, n - 1, n), None)
         return step
 
-    def _to_device(self, x, y) -> tuple[torch.Tensor, torch.Tensor]:
-        return (torch.as_tensor(x, dtype=torch.float32, device=self.device),
-                torch.as_tensor(y, device=self.device).long())
+    def _to_device(self, x, y, batch_axis: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """This process's rows of a host batch, on its device."""
+        mine = (slice(None),) * batch_axis + (
+            local_rows(self.mesh, np.shape(x)[batch_axis]),)
+        return (torch.as_tensor(x[mine], dtype=torch.float32,
+                                device=self.device),
+                torch.as_tensor(y[mine], device=self.device).long())
+
+    @property
+    def group(self):
+        return None if self.mesh is None else self.mesh.group
+
+    def _log(self, step: int, m: dict[str, torch.Tensor]) -> dict[str, float]:
+        """The metrics on the host, the world's mean on a mesh, written by
+        rank 0."""
+        if self.mesh is not None:
+            vals = steps_lib.all_reduce_mean(
+                [v.reshape(1).float() for v in m.values()], self.group)
+            m = dict(zip(m, vals))
+        metrics = {k: float(v) for k, v in m.items()}
+        if self.lead:
+            self.writer.scalars(step, metrics)
+        return metrics
+
+    def _save(self, step: int) -> None:
+        if self.lead:
+            self.ckpt.save(step, self.state)
 
     def _log_spectrograms(self, step: int, x, y) -> None:
         """Real vs reconstructed frames as images (reference util/image.py
-        tf.summary.image thumbnails): one forward without gradients."""
+        tf.summary.image thumbnails): one forward without gradients, on
+        rank 0."""
+        if not self.lead:
+            return
         try:
-            x, y = self._to_device(x[:64], y[:64])
+            x = torch.as_tensor(x[:64], dtype=torch.float32,
+                                device=self.device)
+            y = torch.as_tensor(y[:64], device=self.device).long()
             g = torch.Generator(device=self.device).manual_seed(0)
             with torch.no_grad():
                 xh = self.model(x, y, steps_lib.vae_noise(
@@ -110,7 +190,8 @@ class _BaseTrainer:
 
     def close(self):
         self.ckpt.wait()
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()
 
     def _multistep(self, data: torch.Tensor, labels: torch.Tensor,
                    n_inner: int) -> dict[str, torch.Tensor]:
@@ -153,13 +234,12 @@ class _BaseTrainer:
             step = self.state.step
             last = d + 1 == len(plan)
             if (d + 1) % log_every == 0 or last:
-                metrics = {k: float(v) for k, v in m.items()}
-                self.writer.scalars(step, metrics)
+                metrics = self._log(step, m)
             if (d + 1) % save_every == 0 or last:
                 # the reference's one visual, at save boundaries only: a
                 # fixed slice of the table, one forward
                 self._log_spectrograms(step, data[:64], labels[:64])
-                self.ckpt.save(step, self.state)
+                self._save(step)
         self.ckpt.wait()
         return metrics
 
@@ -177,7 +257,7 @@ class VAETrainer(_BaseTrainer):
 
     def _multistep(self, data, labels, n_inner):
         return steps_lib.vae_multistep(self.state, data, labels, n_inner,
-                                       self.seed)
+                                       self.seed, self.mesh)
 
     def train(self, batches: Iterator[tuple[np.ndarray, np.ndarray]],
               total_steps: int, log_every: int | None = None,
@@ -188,16 +268,18 @@ class VAETrainer(_BaseTrainer):
         start = self._resume(batches, batches_per_step=1)
         metrics = {}
         for step in range(start, total_steps):
-            x, y = self._to_device(*next(batches))
+            xb, yb = next(batches)
+            x, y = self._to_device(xb, yb)
             g = steps_lib.step_generator(self.seed, step, self.device)
-            m = steps_lib.vae_step(self.state, x, y, steps_lib.vae_noise(
-                g, x.shape[0], self.arch))
+            eps = steps_lib.vae_noise(g, len(xb), self.arch)
+            m = steps_lib.vae_step(self.state, x, y,
+                                   eps[local_rows(self.mesh, len(xb))],
+                                   self.group)
             if (step + 1) % log_every == 0 or step + 1 == total_steps:
-                metrics = {k: float(v) for k, v in m.items()}
-                self.writer.scalars(step + 1, metrics)
-                self._log_spectrograms(step + 1, x, y)
+                metrics = self._log(step + 1, m)
+                self._log_spectrograms(step + 1, xb, yb)
             if (step + 1) % save_every == 0 or step + 1 == total_steps:
-                self.ckpt.save(step + 1, self.state)
+                self._save(step + 1)
         self.ckpt.wait()
         return metrics
 
@@ -217,7 +299,7 @@ class VAWGANTrainer(_BaseTrainer):
 
     def _multistep(self, data, labels, n_inner):
         return steps_lib.vawgan_multistep(self.state, data, labels, n_inner,
-                                          self.seed)
+                                          self.seed, self.mesh)
 
     def train(self, batches: Iterator[tuple[np.ndarray, np.ndarray]],
               total_steps: int, log_every: int | None = None,
@@ -231,18 +313,19 @@ class VAWGANTrainer(_BaseTrainer):
         for step in range(start, total_steps):
             xs, ys = zip(*(next(batches) for _ in range(n_unroll + 1)))
             x_crit, y_crit = self._to_device(np.stack(xs[:-1]),
-                                             np.stack(ys[:-1]))
+                                             np.stack(ys[:-1]), 1)
             x_gen, y_gen = self._to_device(xs[-1], ys[-1])
             g = steps_lib.step_generator(self.seed, step, self.device)
+            b = len(xs[-1])
+            noise = steps_lib.vawgan_noise(g, b, self.arch)
             m = steps_lib.vawgan_step(
                 self.state, x_crit, y_crit, x_gen, y_gen,
-                steps_lib.vawgan_noise(g, x_gen.shape[0], self.arch))
+                noise.rows(local_rows(self.mesh, b)), self.group)
             if (step + 1) % log_every == 0 or step + 1 == total_steps:
-                metrics = {k: float(v) for k, v in m.items()}
-                self.writer.scalars(step + 1, metrics)
-                self._log_spectrograms(step + 1, x_gen, y_gen)
+                metrics = self._log(step + 1, m)
+                self._log_spectrograms(step + 1, xs[-1], ys[-1])
             if (step + 1) % save_every == 0 or step + 1 == total_steps:
-                self.ckpt.save(step + 1, self.state)
+                self._save(step + 1)
         self.ckpt.wait()
         return metrics
 

@@ -108,6 +108,19 @@ non-zero and prints no ``"ok"`` line):
                (init and all-reduce); cli.convert --all_pairs
                --data_parallel on phase 6's checkpoint against phase 7's
                files (SNR >= 40 dB).
+  9. bench   — the port's measurement entry points (tpuvc_torch.bench)
+               at reduced repetitions, counters zeroed just before and
+               read just after each, each printing its JSON line:
+               bench_torch.py's measurement in "both" mode at 128 x 4 s
+               (k 2, 3 repetitions; ulaw8 SNR >= 30 dB, pcm12 >= 50 dB),
+               the Harvest bench at 32 x 4 s, the streaming bench (a 0.5 s
+               single-stream sweep over 4 s, 16 paced streams of 0.5 s for
+               20 ticks), compute-only at K 4 with d2s_impl xla and pallas
+               (K9), and the stage ablation at 32 x 4 s.  Each JSON's keys
+               must equal the JAX script's, and each path's kernels must
+               have launched.  Then one default call of 128 x 4 s under
+               torch.cuda.set_sync_debug_mode("warn"): the host syncs
+               hidden in it, counted by the port's line that caused them.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -198,30 +211,6 @@ def path_model(path: str, state, dev, compute_dtype: str = "bfloat16"):
     from tpuvc_torch.utils.config import Architecture
     return load_model(Architecture(compute_dtype=compute_dtype,
                                    **PATHS[path][3]), state, dev)
-
-
-def counters() -> dict:
-    """kernel name -> (module, attribute) of its launch counter."""
-    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
-                                 window)
-    return {"events": (events, "launches"),
-            "harmonics": (harmonics, "launches"),
-            "window": (window, "launches"),
-            "smooth": (smooth, "launches"),
-            "topk": (topk, "launches"),
-            "refine": (harmonics, "launches_refine"),
-            "scan": (events, "launches_scan"),
-            "conv": (conv, "launches"),
-            "d2s": (d2s, "launches")}
-
-
-def reset_counts() -> None:
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
-
-
-def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def phase_device():
@@ -856,6 +845,7 @@ def phase_serve(path: str, dev, state,
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
                                               synthesis_noise)
+    from tpuvc_torch.ops._build import read_counts, reset_counts
     cfg = path_cfg(path)
     model = path_model(path, state, dev)
     rng = np.random.default_rng(0)
@@ -931,6 +921,7 @@ def phase_entry_points(conv, dev) -> dict:
     from tpuvc_torch.convert.streaming import StreamingConverter
     from tpuvc_torch.io import corpus, records
     from tpuvc_torch.io.wav import write_wav
+    from tpuvc_torch.ops._build import read_counts, reset_counts
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cuda = dev.type == "cuda"
     rng = np.random.default_rng(3)
@@ -1215,6 +1206,7 @@ def phase_train(dev, tmp: str, arch_path: str = TRAIN_ARCH,
     from tpuvc_torch.data.dataset import FrameDataset
     from tpuvc_torch.data.normalizer import Tanhize
     from tpuvc_torch.io import corpus as corpus_io
+    from tpuvc_torch.ops._build import read_counts, reset_counts
     from tpuvc_torch.train import steps as steps_lib
     from tpuvc_torch.train import trainer as trainer_lib
     from tpuvc_torch.utils.config import Architecture
@@ -1458,6 +1450,7 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
     from tpuvc_torch.convert import pipeline
     from tpuvc_torch.io import corpus as corpus_io
     from tpuvc_torch.io.wav import read_wav
+    from tpuvc_torch.ops._build import read_counts, reset_counts
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     speakers = corpus_io.read_speakers(os.path.join(corpus, "etc"))
@@ -1625,6 +1618,7 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
     from tpuvc_torch.data.normalizer import Tanhize
     from tpuvc_torch.dsp.world import analyze
     from tpuvc_torch.io.wav import read_wav
+    from tpuvc_torch.ops._build import read_counts, reset_counts
     from tpuvc_torch.parallel import distributed, dryrun
     from tpuvc_torch.parallel.frame_sharding import analyze_sharded
     from tpuvc_torch.train import steps as steps_lib
@@ -1903,6 +1897,164 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
     return rec
 
 
+# --- phase 9: bench ---------------------------------------------------------
+
+# the keys of the JAX entry points' JSON (bench.py, scripts/bench_*.py,
+# scripts/compute_only.py; bench_stages.py's ``results``)
+BENCH_KEYS = {
+    "throughput": {"metric", "value", "unit", "vs_baseline", "batch",
+                   "utterance_s", "encoding", "ulaw_snr_db", "pcm12_snr_db",
+                   "wall_s_per_call", "strategy", "strategies", "latency_s",
+                   "latency_x_realtime", "compile_wall_s", "aot_cache",
+                   "device", "int16", "pcm12"},
+    "harvest": {"metric", "value", "unit", "harmonics_impl", "refine_impl",
+                "channel_decim", "batch", "utterance_s", "wall_s_per_call",
+                "spread", "first_call_s_incl_compile", "device"},
+    "streaming": {"metric", "encoding", "device", "sweep",
+                  "paced_multistream"},
+    "sweep": {"chunk_s", "halo_s", "median_chunk_wall_s", "p90_chunk_wall_s",
+              "stream_x_realtime", "latency_s_buffered_plus_wall",
+              "throughput_whole_stream_x", "n_chunks",
+              "first_call_s_incl_compile"},
+    "paced": {"n_streams", "chunk_s", "paced", "n_ticks", "p50_tick_wall_s",
+              "p90_tick_wall_s", "p99_tick_wall_s", "max_tick_wall_s",
+              "deadline_miss_rate", "max_completion_lag_s",
+              "aggregate_x_realtime_at_pace", "per_stream_latency_s_p50",
+              "first_tick_s_incl_compile"},
+    "compute_only": {"metric", "value", "unit", "s_per_call", "batch",
+                     "utterance_s", "k", "d2s_impl", "device"},
+    "stages": {"dio", "stonemask", "cheaptrick", "d4c_group_delay",
+               "d4c_nccf", "synthesis", "vae(bf16)", "excitation"},
+}
+
+
+def sync_sites(dev, batch: int, dur_s: float) -> dict:
+    """Host syncs hidden in one default call (bench_torch.py's, ulaw8, no
+    copy to the host) after a warm-up one: every synchronising operation
+    that torch.cuda.set_sync_debug_mode("warn") reports while the call
+    runs, counted by the innermost line of the port that led to it (a
+    report with no line of the port on the stack, as switching the mode
+    can give, is counted apart); the record keeps the 12 lines with the
+    most."""
+    import collections
+    import traceback
+    import warnings
+    import torch
+    from tpuvc_torch.bench import common
+    model, arch = common.seeded_model(dev)
+    call = common.device_call(model, encoding="ulaw8")
+    args = common.on_device(common.make_inputs(batch, dur_s,
+                                               y_dim=arch.y_dim), dev)
+    call(*args)
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+    outside = []
+    pkg = os.path.join(ROOT, "tpuvc_torch")
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        own = [f for f in traceback.extract_stack()
+               if f.filename.startswith(pkg)]
+        if not own:
+            outside.append(f"{filename}:{lineno}")
+            return
+        sites[f"{os.path.relpath(own[-1].filename, ROOT)}:"
+              f"{own[-1].lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"count": sum(sites.values()), "sites": dict(sites.most_common(
+        12)), "n_sites": len(sites), "outside_the_call": outside}
+
+
+def phase_bench(dev, batch: int = 128, harvest_batch: int = 32,
+                dur_s: float = 4.0, k: int = 2, reps: int = 3,
+                stream_s: float = 4.0, n_streams: int = 16, ticks: int = 20,
+                compute_k: int = 4, stage_batch: int = 32) -> dict:
+    """The port's bench entry points (tpuvc_torch.bench) at reduced
+    repetitions, counters zeroed just before and read just after each:
+    each one's JSON keys equal the JAX script's, the transfer SNRs hold
+    their floors, its path's kernels launched."""
+    import torch
+    from tpuvc_torch.bench import (compute_only, harvest, stages, streaming,
+                                   throughput)
+    from tpuvc_torch.ops._build import read_counts, reset_counts
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"launches": {}, "wall_s": {}}
+
+    def entry(name, kernels, fn):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = fn()
+        sync()
+        out["wall_s"][name] = time.perf_counter() - t0
+        out["launches"][name] = launches = read_counts()
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing and cuda:
+            raise AssertionError(f"bench {name} did not launch: {missing}")
+        say(f"[9 bench] {name}: {out['wall_s'][name]:.1f} s; kernel "
+            f"launches {launches}")
+        say(json.dumps(rec))
+        return rec
+
+    def keys(name, rec, want):
+        if set(rec) != want:
+            raise AssertionError(f"bench {name}: keys {sorted(rec)} are not "
+                                 f"the JAX script's {sorted(want)}")
+
+    rec = out["throughput"] = entry(
+        "throughput", DIO_KERNELS, lambda: throughput.measure(
+            batch, dur_s, "both", k=k, reps=reps, device=dev))
+    keys("throughput", rec, BENCH_KEYS["throughput"])
+    if not (rec["ulaw_snr_db"] >= 30.0 and rec["pcm12_snr_db"] >= 50.0):
+        raise AssertionError(f"bench throughput: ulaw8 {rec['ulaw_snr_db']}"
+                             f" dB (floor 30), pcm12 {rec['pcm12_snr_db']} "
+                             "dB (floor 50)")
+    rec = out["harvest"] = entry(
+        "harvest", HARVEST_KERNELS, lambda: harvest.measure(
+            harvest_batch, dur_s, 1, k=k, reps=reps, device=dev))
+    keys("harvest", rec, BENCH_KEYS["harvest"])
+    rec = out["streaming"] = entry(
+        "streaming", DIO_KERNELS, lambda: streaming.run(
+            chunks=(0.5,), streams=(n_streams,), paced_chunks=(0.5,),
+            ticks=ticks, device=dev, signal_s=stream_s))
+    keys("streaming", rec, BENCH_KEYS["streaming"])
+    for r in rec["sweep"]:
+        keys("streaming sweep", r, BENCH_KEYS["sweep"])
+    for r in rec["paced_multistream"]:
+        keys("streaming paced", r, BENCH_KEYS["paced"])
+    out["compute_only"] = {}
+    for impl, kernels in (("xla", DIO_KERNELS),
+                          ("pallas", DIO_KERNELS + ("d2s",))):
+        rec = out["compute_only"][impl] = entry(
+            f"compute_only {impl}", kernels, lambda: compute_only.measure(
+                batch, dur_s, compute_k, impl, device=dev))
+        keys("compute_only", rec, BENCH_KEYS["compute_only"])
+    rec = out["stages"] = entry("stages", DIO_KERNELS, lambda: stages.measure(
+        stage_batch, dur_s, k=k, reps=reps, device=dev))
+    keys("stages", rec["results"], BENCH_KEYS["stages"])
+    if cuda:
+        t0 = time.perf_counter()
+        out["syncs"] = syncs = sync_sites(dev, batch, dur_s)
+        say(f"[9 bench] host syncs in one default call of {batch} x "
+            f"{dur_s:g} s (set_sync_debug_mode, {time.perf_counter() - t0:.1f}"
+            f" s): {syncs['count']} at {syncs['n_sites']} lines; most: "
+            f"{json.dumps(syncs['sites'])} (and "
+            f"{len(syncs['outside_the_call'])} outside the call: "
+            f"{syncs['outside_the_call']})")
+    return out
+
+
 def profile_call(fn, out_dir: str, fname: str,
                  phase: str = "5 rate") -> dict:
     """torch.profiler over one call: device time by kernel (table in
@@ -2043,13 +2195,18 @@ def main() -> int:
                                   os.path.join(tmp, "converted",
                                                "all_pairs"), tmp)
     say(f"[8 parallel] card: {smi}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = phase_bench(dev)
+    say(f"[9 bench] phase 9 took {time.perf_counter() - t0:.1f} s; card: "
+        f"{smi}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
                        "rate": rates, "train": train, "convert": convert,
-                       "parallel": parallel},
+                       "parallel": parallel, "bench": bench},
                       f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))

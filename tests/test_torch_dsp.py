@@ -482,16 +482,23 @@ def test_world_resynthesize_matches_jax(jax_chain):
 
 
 def test_constants_match_jax():
-    """The port's copy of tpuvc/dsp/constants.py: every name it defines
-    has the JAX module's value, its functions agree on the configurations
-    in use, and WorldConfig has the same fields and defaults."""
+    """The port's copy of tpuvc/dsp/constants.py: every upper-case name of
+    either module is in the other with the same value, its functions agree
+    on the configurations in use, and WorldConfig has the same fields and
+    defaults."""
     import dataclasses
     from tpuvc.dsp import constants as jc
     from tpuvc_torch.dsp import constants as pc
-    names = [k for k in vars(pc) if k.isupper() and k != "DEFAULT_WORLD"]
+
+    def upper(mod):
+        return {k for k in vars(mod) if k.isupper() and k != "DEFAULT_WORLD"}
+
+    names = upper(pc)
     assert len(names) > 40
     assert "MAX_ANALYSIS_WINDOW" in names      # frame sharding's halo bound
-    for k in names:
+    assert "SYNTH_NOISE_SEED" in names
+    assert upper(jc) - names == set() and names - upper(jc) == set()
+    for k in sorted(names):
         assert getattr(pc, k) == getattr(jc, k), k
     for fs, floor in ((16000, 71.0), (22050, 50.0), (8000, 100.0)):
         assert pc.harvest_refine_window(fs, floor) == \
@@ -501,6 +508,10 @@ def test_constants_match_jax():
     assert pc.max_refined_f0() == jc.max_refined_f0()
     for fs in (8000, 16000, 22050, 44100):
         assert pc.cheaptrick_fft_size(fs) == jc.cheaptrick_fft_size(fs)
+        for n in (1024, 2048):
+            assert (pc.cheaptrick_f0_floor(fs, n)
+                    == jc.cheaptrick_f0_floor(fs, n))
+        assert pc.cheaptrick_f0_floor(fs) == jc.cheaptrick_f0_floor(fs)
     assert (dataclasses.asdict(pc.DEFAULT_WORLD)
             == dataclasses.asdict(jc.DEFAULT_WORLD))
     cfg = dict(f0_method="harvest", ap_method="nccf", fs=22050)

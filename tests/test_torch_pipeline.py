@@ -329,9 +329,9 @@ def test_converter_harvest_path_and_default_device():
 
 
 def test_port_imports_no_jax():
-    """Every tpuvc_torch module, chip_smoke.py and every module
-    chip_smoke.py imports (inside its functions too) import without jax,
-    jaxlib, flax, optax, orbax or any module of the JAX package tpuvc
+    """Every tpuvc_torch module, bench_torch.py, chip_smoke.py and every
+    module chip_smoke.py imports (inside its functions too) import without
+    jax, jaxlib, flax, optax, orbax or any module of the JAX package tpuvc
     (the card's machine has none of them)."""
     code = (
         "import ast, pkgutil, sys, importlib, tpuvc_torch\n"
@@ -339,7 +339,7 @@ def test_port_imports_no_jax():
         "'tpuvc_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "n = sum(m.startswith('tpuvc_torch') for m in sys.modules)\n"
-        "import chip_smoke\n"
+        "import bench_torch, chip_smoke\n"
         "tree = ast.parse(open(chip_smoke.__file__).read())\n"
         "for node in ast.walk(tree):\n"
         "    if isinstance(node, ast.Import):\n"

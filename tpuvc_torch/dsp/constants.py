@@ -86,6 +86,11 @@ def cheaptrick_fft_size(fs: int, f0_floor: float = F0_FLOOR) -> int:
     return 2 ** (1 + int(math.log2(3.0 * fs / f0_floor + 1.0)))
 
 
+def cheaptrick_f0_floor(fs: int, fft_size: int = FFT_SIZE) -> float:
+    """Lowest f0 the FFT size supports: 3 fs / (fft_size - 3)."""
+    return 3.0 * fs / (fft_size - 3.0)
+
+
 # --- D4C ---
 D4C_THRESHOLD = 0.85
 D4C_FREQUENCY_INTERVAL = 3000.0
@@ -111,6 +116,10 @@ def d4c_num_bands(fs: int) -> int:
     """Number of 3 kHz coarse aperiodicity bands."""
     return int(min(D4C_UPPER_LIMIT, fs / 2.0 - D4C_FREQUENCY_INTERVAL)
                / D4C_FREQUENCY_INTERVAL)
+
+
+# --- synthesis ---
+SYNTH_NOISE_SEED = 0            # default seed of the aperiodic source
 
 
 @dataclasses.dataclass(frozen=True)

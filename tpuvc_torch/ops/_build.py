@@ -134,6 +134,30 @@ def count(module: str, counter: str) -> None:
         setattr(mod, counter, getattr(mod, counter) + 1)
 
 
+def counters() -> dict:
+    """kernel name -> (wrapper module, attribute) of its launch counter."""
+    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
+                                 window)
+    return {"events": (events, "launches"),
+            "harmonics": (harmonics, "launches"),
+            "window": (window, "launches"),
+            "smooth": (smooth, "launches"),
+            "topk": (topk, "launches"),
+            "refine": (harmonics, "launches_refine"),
+            "scan": (events, "launches_scan"),
+            "conv": (conv, "launches"),
+            "d2s": (d2s, "launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+
+
 def launch(name: str, device, *args) -> None:
     """Call a C launcher on ``device``'s current PyTorch stream, with that
     device current; raise on a CUDA error."""

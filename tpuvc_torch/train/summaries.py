@@ -49,6 +49,10 @@ class MetricsWriter:
             img = spectrogram_image(np.asarray(frames), log_input=log_input)
             self._tb.add_image(tag, img, step, dataformats="HWC")
 
+    def flush(self) -> None:
+        if self._tb is not None:
+            self._tb.flush()
+
     def close(self) -> None:
         self._jsonl.close()
         if self._tb is not None:

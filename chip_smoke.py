@@ -121,6 +121,20 @@ non-zero and prints no ``"ok"`` line):
                have launched.  Then one default call of 128 x 4 s under
                torch.cuda.set_sync_debug_mode("warn"): the host syncs
                hidden in it, counted by the port's line that caused them.
+ 10. quality — the quality studies (tpuvc_torch.quality) once each through
+               their ``main`` on the card at a reduced size, cuDNN's TF32
+               on as in ``cli.train``, counters zeroed just before and read
+               just after each, result files under build/: the five
+               round-trip classes (each MCD within 0.1 dB of the same
+               function on the CPU port, the same noise); scale validation
+               on the 10-speaker corpus at 3 training utterances per
+               speaker (cli.analyze, 20 cli.train steps, all 450 pairs,
+               SF1 -> TM3); convergence_ab --ab model for 300 resident
+               steps in 3 milestones per arm (the last milestone's MCD
+               must be below the first's in each arm: training learns);
+               the critic A/B for 30 steps per arm.  Every number must be
+               finite, every result's keys the JAX script's, and K1, K7,
+               K2, K3, K4 and K5 must have launched in each study.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -2055,6 +2069,155 @@ def phase_bench(dev, batch: int = 128, harvest_batch: int = 32,
     return out
 
 
+# --- phase 10: quality -----------------------------------------------------
+
+# the keys of the JAX quality scripts' results (scripts/roundtrip_classes.py
+# per class, scale_validation.py, convergence_ab.py and its milestones,
+# critic_conditioning_ab.py per arm) and of cli.evaluate's conversion record
+QUALITY_KEYS = {
+    "roundtrip": {"roundtrip_mcd_db", "retest_floor_db",
+                  "measurement_limited"},
+    "scale": {"corpus_gen_s", "config2_analyze_s", "config2_audio_s",
+              "config2_x_realtime", "config3_train_s", "config3_steps",
+              "config3_steps_per_s", "config3_final_metrics",
+              "config4_convert_s", "config4_n_conversions",
+              "config4_x_realtime", "quality_sf1_tm3"},
+    "convergence": {"steps", "eval_every", "ab", "style", "models"},
+    "milestone": {"step", "mcd_db", "mcd_dtw_db", "gv_ratio_db",
+                  "ms_highband_ratio_db", "train_wall_s"},
+    "critic": {"train_s", "curve", "eval_sf1_tm3"},
+    "evaluate": {"metric", "unit", "step", "mean", "mean_dtw", "gv_ratio_db",
+                 "ms_highband_ratio_db", "n_utterances"},
+}
+# a round trip on the card against the same function on the CPU port, with
+# the same synthesis noise
+ROUNDTRIP_CPU_DB = 0.1
+
+
+def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
+                  conv_steps: int = 300, eval_every: int = 100,
+                  n_inner: int = 50, critic_steps: int = 30,
+                  log_every: int = 10) -> dict:
+    """The four quality studies through their ``main`` on ``dev``, corpora,
+    runs and result files under ``tmp``, counters zeroed just before and
+    read just after each: finite numbers, the JAX scripts' keys, the
+    analysis kernels launched, round trips within ROUNDTRIP_CPU_DB of the
+    CPU port's, MCD falling over every convergence arm."""
+    import torch
+    from tpuvc_torch.dsp import world
+    from tpuvc_torch.dsp.constants import DEFAULT_WORLD
+    from tpuvc_torch.ops._build import read_counts, reset_counts
+    from tpuvc_torch.quality import (common, convergence_ab,
+                                     critic_conditioning_ab,
+                                     roundtrip_classes, scale_validation)
+    from tpuvc_torch.quality.signals import make_speech_like
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    files = {"RECORD_PATH": os.path.join(tmp, "scale_validation_torch.json"),
+             "CRITIC_AB_PATH": os.path.join(tmp, "critic_ab_torch.json")}
+    saved = {k: getattr(common, k) for k in files}
+    root = os.path.join(tmp, "vcc10")
+    out = {"launches": {}, "wall_s": {}}
+    say(f"[10 quality] sizes: round trips of the 5 classes (1 s each); "
+        f"scale_validation --n_train {n_train} (10 speakers x {n_train} + 5 "
+        f"utterances of 1.5 s) --steps {scale_steps}; convergence_ab --ab "
+        f"model --steps {conv_steps} --eval_every {eval_every} --n_inner "
+        f"{n_inner} on that corpus; critic_conditioning_ab --steps "
+        f"{critic_steps} --log_every {log_every}; cuDNN TF32 on")
+
+    def keys(name, rec, want):
+        if set(rec) != want:
+            raise AssertionError(f"quality {name}: keys {sorted(rec)} are "
+                                 f"not the JAX script's {sorted(want)}")
+
+    def study(name, mod, argv):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = mod.main(argv + ["--device", dev.type])
+        sync()
+        out["wall_s"][name] = time.perf_counter() - t0
+        out["launches"][name] = launches = read_counts()
+        missing = [k for k in DIO_KERNELS if launches[k] == 0]
+        if missing and cuda:
+            raise AssertionError(f"quality {name} did not launch {missing}")
+        bad = common.non_finite(rec, name)
+        if bad:
+            raise AssertionError(f"quality {name}: not finite at {bad}")
+        say(f"[10 quality] {name}: {out['wall_s'][name]:.1f} s; kernel "
+            f"launches {launches}")
+        out[name] = rec
+        return rec
+
+    try:
+        for k, v in files.items():
+            setattr(common, k, v)
+        with cudnn_tf32(True):
+            rt = study("roundtrip_classes", roundtrip_classes, [])
+            keys("roundtrip_classes", rt, set(roundtrip_classes.KINDS))
+            for r in rt.values():
+                keys("roundtrip_classes class", r, QUALITY_KEYS["roundtrip"])
+            # the same function on the CPU port, drawing the card's noise
+            real = world.synthesis_noise
+            world.synthesis_noise = lambda seeds, n, device: real(
+                seeds, n, dev).to(device)
+            try:
+                cpu = {kind: roundtrip_classes.roundtrip_mcd(
+                    make_speech_like(kind, seed=0)[0], DEFAULT_WORLD,
+                    device="cpu") for kind in roundtrip_classes.KINDS}
+            finally:
+                world.synthesis_noise = real
+            gaps = {k: abs(rt[k]["roundtrip_mcd_db"] - cpu[k]) for k in cpu}
+            out["roundtrip_card_vs_cpu_db"] = gaps
+            say(f"[10 quality] round trip, card against the CPU port (same "
+                f"noise): |MCD gap| {json.dumps(gaps)} dB")
+            if max(gaps.values()) > ROUNDTRIP_CPU_DB:
+                raise AssertionError(f"round trips: card and CPU differ by "
+                                     f"more than {ROUNDTRIP_CPU_DB} dB")
+            sv = study("scale_validation", scale_validation, [
+                "--root", root, "--logdir", os.path.join(tmp, "scale_log"),
+                "--steps", str(scale_steps), "--n_train", str(n_train)])
+            keys("scale_validation", sv, QUALITY_KEYS["scale"])
+            keys("scale_validation SF1->TM3", sv["quality_sf1_tm3"],
+                 QUALITY_KEYS["evaluate"])
+            cv = study("convergence_ab", convergence_ab, [
+                "--ab", "model", "--root", root,
+                "--logdir", os.path.join(tmp, "conv_log"),
+                "--steps", str(conv_steps), "--eval_every", str(eval_every),
+                "--n_inner", str(n_inner), "--n_train", str(n_train)])
+            keys("convergence_ab", cv, QUALITY_KEYS["convergence"])
+            for arm, traj in cv["models"].items():
+                for m in traj:
+                    keys("convergence_ab milestone", m,
+                         QUALITY_KEYS["milestone"])
+                say(f"[10 quality] convergence_ab {arm}: MCD "
+                    f"{[m['mcd_db'] for m in traj]} dB at steps "
+                    f"{[m['step'] for m in traj]}")
+                if not traj[-1]["mcd_db"] < traj[0]["mcd_db"]:
+                    raise AssertionError(
+                        f"convergence_ab {arm}: MCD did not fall over "
+                        f"training ({traj[0]['mcd_db']} -> "
+                        f"{traj[-1]['mcd_db']} dB)")
+            cr = study("critic_conditioning_ab", critic_conditioning_ab, [
+                "--root", os.path.join(tmp, "ab_corpus"),
+                "--logdir", os.path.join(tmp, "ab_log"),
+                "--steps", str(critic_steps), "--log_every", str(log_every)])
+            keys("critic_conditioning_ab", cr, {"unconditional",
+                                                "conditional"})
+            for r in cr.values():
+                keys("critic_conditioning_ab arm", r, QUALITY_KEYS["critic"])
+                keys("critic_conditioning_ab SF1->TM3", r["eval_sf1_tm3"],
+                     QUALITY_KEYS["evaluate"])
+        for path in files.values():
+            bad = common.non_finite(common.read_record(path), path)
+            if bad:
+                raise AssertionError(f"quality: not finite at {bad}")
+    finally:
+        for k, v in saved.items():
+            setattr(common, k, v)
+    return out
+
+
 def profile_call(fn, out_dir: str, fname: str,
                  phase: str = "5 rate") -> dict:
     """torch.profiler over one call: device time by kernel (table in
@@ -2200,13 +2363,21 @@ def main() -> int:
     bench = phase_bench(dev)
     say(f"[9 bench] phase 9 took {time.perf_counter() - t0:.1f} s; card: "
         f"{smi}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        quality = phase_quality(dev, tmp)
+    quality["phase_s"] = time.perf_counter() - t0
+    say(f"[10 quality] phase 10 took {quality['phase_s']:.1f} s; card: "
+        f"{smi}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
                        "rate": rates, "train": train, "convert": convert,
-                       "parallel": parallel, "bench": bench},
+                       "parallel": parallel, "bench": bench,
+                       "quality": quality},
                       f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))

@@ -131,8 +131,13 @@ non-zero and prints no ``"ok"`` line):
                speaker (cli.analyze, 20 cli.train steps, all 450 pairs,
                SF1 -> TM3); convergence_ab --ab model for 300 resident
                steps in 3 milestones per arm (the last milestone's MCD
-               must be below the first's in each arm: training learns);
-               the critic A/B for 30 steps per arm.  Every number must be
+               must be below the first's in each arm: training learns),
+               then convergence_ab --ab critic (the unconditioned and the
+               projection-conditioned critic) for 400 resident steps in 2
+               milestones per arm, checked the same way (not sooner: the
+               unconditioned arm's MCD dips near step 100 and peaks near
+               200 before it falls); the per-step critic A/B for 30 steps
+               per arm.  Every number must be
                finite, every result's keys the JAX script's, and K1, K7,
                K2, K3, K4 and K5 must have launched in each study.
 
@@ -2096,13 +2101,15 @@ ROUNDTRIP_CPU_DB = 0.1
 
 def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
                   conv_steps: int = 300, eval_every: int = 100,
-                  n_inner: int = 50, critic_steps: int = 30,
+                  n_inner: int = 50, critic_ab_steps: int = 400,
+                  critic_ab_every: int = 200, critic_steps: int = 30,
                   log_every: int = 10) -> dict:
     """The four quality studies through their ``main`` on ``dev``, corpora,
     runs and result files under ``tmp``, counters zeroed just before and
     read just after each: finite numbers, the JAX scripts' keys, the
     analysis kernels launched, round trips within ROUNDTRIP_CPU_DB of the
-    CPU port's, MCD falling over every convergence arm."""
+    CPU port's, MCD falling over every arm of the model and the critic
+    A/B of convergence_ab."""
     import torch
     from tpuvc_torch.dsp import world
     from tpuvc_torch.dsp.constants import DEFAULT_WORLD
@@ -2122,8 +2129,10 @@ def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
         f"scale_validation --n_train {n_train} (10 speakers x {n_train} + 5 "
         f"utterances of 1.5 s) --steps {scale_steps}; convergence_ab --ab "
         f"model --steps {conv_steps} --eval_every {eval_every} --n_inner "
-        f"{n_inner} on that corpus; critic_conditioning_ab --steps "
-        f"{critic_steps} --log_every {log_every}; cuDNN TF32 on")
+        f"{n_inner} on that corpus, then --ab critic --steps "
+        f"{critic_ab_steps} --eval_every {critic_ab_every}; "
+        f"critic_conditioning_ab --steps {critic_steps} --log_every "
+        f"{log_every}; cuDNN TF32 on")
 
     def keys(name, rec, want):
         if set(rec) != want:
@@ -2180,24 +2189,31 @@ def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
             keys("scale_validation", sv, QUALITY_KEYS["scale"])
             keys("scale_validation SF1->TM3", sv["quality_sf1_tm3"],
                  QUALITY_KEYS["evaluate"])
-            cv = study("convergence_ab", convergence_ab, [
-                "--ab", "model", "--root", root,
-                "--logdir", os.path.join(tmp, "conv_log"),
-                "--steps", str(conv_steps), "--eval_every", str(eval_every),
-                "--n_inner", str(n_inner), "--n_train", str(n_train)])
-            keys("convergence_ab", cv, QUALITY_KEYS["convergence"])
-            for arm, traj in cv["models"].items():
-                for m in traj:
-                    keys("convergence_ab milestone", m,
-                         QUALITY_KEYS["milestone"])
-                say(f"[10 quality] convergence_ab {arm}: MCD "
-                    f"{[m['mcd_db'] for m in traj]} dB at steps "
-                    f"{[m['step'] for m in traj]}")
-                if not traj[-1]["mcd_db"] < traj[0]["mcd_db"]:
-                    raise AssertionError(
-                        f"convergence_ab {arm}: MCD did not fall over "
-                        f"training ({traj[0]['mcd_db']} -> "
-                        f"{traj[-1]['mcd_db']} dB)")
+            # the model A/B, then the critic A/B (whose uncond arm is the
+            # critic of the reference's earlier records) on the same corpus
+            for ab, log, steps, every in (
+                    ("model", "conv_log", conv_steps, eval_every),
+                    ("critic", "critic_log", critic_ab_steps,
+                     critic_ab_every)):
+                name = "convergence_ab" + ("" if ab == "model" else "_" + ab)
+                cv = study(name, convergence_ab, [
+                    "--ab", ab, "--root", root,
+                    "--logdir", os.path.join(tmp, log), "--steps",
+                    str(steps), "--eval_every", str(every), "--n_inner",
+                    str(n_inner), "--n_train", str(n_train)])
+                keys(name, cv, QUALITY_KEYS["convergence"])
+                for arm, traj in cv["models"].items():
+                    for m in traj:
+                        keys(f"{name} milestone", m,
+                             QUALITY_KEYS["milestone"])
+                    say(f"[10 quality] {name} {arm}: MCD "
+                        f"{[m['mcd_db'] for m in traj]} dB at steps "
+                        f"{[m['step'] for m in traj]}")
+                    if not traj[-1]["mcd_db"] < traj[0]["mcd_db"]:
+                        raise AssertionError(
+                            f"{name} {arm}: MCD did not fall over "
+                            f"training ({traj[0]['mcd_db']} -> "
+                            f"{traj[-1]['mcd_db']} dB)")
             cr = study("critic_conditioning_ab", critic_conditioning_ab, [
                 "--root", os.path.join(tmp, "ab_corpus"),
                 "--logdir", os.path.join(tmp, "ab_log"),

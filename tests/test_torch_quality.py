@@ -245,7 +245,8 @@ def phase10(tmp_path_factory):
         mp.setattr(synthetic, "make_vcc2016_corpus", small_corpus)
         rec = chip_smoke.phase_quality(
             torch.device("cpu"), tmp, n_train=2, scale_steps=2,
-            conv_steps=40, eval_every=20, n_inner=10, critic_steps=2,
+            conv_steps=40, eval_every=20, n_inner=10, critic_ab_steps=40,
+            critic_ab_every=20, critic_steps=2,
             log_every=1)
     return rec, tmp, before
 
@@ -262,7 +263,7 @@ def test_phase10_rehearses_on_cpu(phase10):
     repository changed (scale_validation.json byte for byte)."""
     rec, tmp, before = phase10
     studies = ("roundtrip_classes", "scale_validation", "convergence_ab",
-               "critic_conditioning_ab")
+               "convergence_ab_critic", "critic_conditioning_ab")
     assert set(rec["wall_s"]) == set(studies)
     assert all(rec["launches"][s] == dict.fromkeys(counters(), 0)
                for s in studies)
@@ -323,6 +324,24 @@ def test_convergence_study_learns(phase10):
     partial = common.read_record(os.path.join(phase10[1], "conv_log",
                                               "partial_results.json"))
     assert partial == rec
+
+
+def test_convergence_critic_study_learns(phase10):
+    """Phase 10's critic A/B of convergence_ab: the unconditioned and the
+    conditioned critic at steps 20 and 40, the JAX keys, the MCD lower at
+    the last milestone in each arm, recorded as critic_conditioning_ab."""
+    rec = phase10[0]["convergence_ab_critic"]
+    keys = jax_keys()
+    assert set(rec) == keys["convergence"]
+    assert rec["ab"] == "critic" and list(rec["models"]) == ["uncond",
+                                                             "cond"]
+    for traj in rec["models"].values():
+        assert [m["step"] for m in traj] == [20, 40]
+        assert all(set(m) == keys["milestone"] for m in traj)
+        assert traj[-1]["mcd_db"] < traj[0]["mcd_db"]
+    blob = common.read_record(os.path.join(phase10[1],
+                                           "scale_validation_torch.json"))
+    assert blob["critic_conditioning_ab"] == rec
 
 
 def test_critic_study_keys(phase10):
@@ -386,6 +405,112 @@ def test_tf32_script_records_the_gaps(phase10, monkeypatch):
         mod.METRICS, 0.0)}]
     assert common.read_record(path)[mod.KEY] == rec
     assert torch.backends.cudnn.allow_tf32           # restored
+
+
+def _record_script():
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_record", os.path.join(SCRIPTS,
+                                             "torch_quality_record.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def record_parts(tmp_path_factory):
+    """scripts/torch_quality_record.py's ``scale_uncond``,
+    ``scale_uncond_linear`` and ``critic`` parts on the CPU at phase 10's
+    narrow architecture and 2-speaker corpus (2 streaming steps continued
+    to 4; the critic A/B to 4 resident steps in 2 milestones); returns
+    (the record, the runs directory, the script module, --out)."""
+    tmp = str(tmp_path_factory.mktemp("record"))
+    arch = os.path.join(tmp, "small.json")
+    SMALL.save(arch)
+    runs, out = os.path.join(tmp, "runs"), os.path.join(tmp, "out")
+    mod = _record_script()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(common, "ARCH_PATH", arch)
+        mp.setattr(common, "RUNS_DIR", runs)
+        mp.setattr(common, "RECORD_PATH", os.path.join(tmp, "record.json"))
+        mp.setattr(synthetic, "make_vcc2016_corpus", small_corpus)
+        mp.setattr(mod, "SCALE_STEPS", 2)
+        mp.setattr(mod, "EXTENDED_STEPS", 4)
+        mp.setattr(mod, "CONVERGENCE_ARGS", ["--steps", "4", "--eval_every",
+                                             "2", "--n_inner", "2"])
+        mod.main(["critic", "scale_uncond_linear", "scale_uncond",
+                  "--device", "cpu", "--out", out])
+        assert (common.ARCH_PATH, common.RECORD_PATH) == (
+            arch, os.path.join(tmp, "record.json"))    # restored
+        rec = common.read_record(common.RECORD_PATH)
+    return rec, runs, mod, out
+
+
+def test_record_parts_write_their_keys(record_parts):
+    """The scale variants write the scale validation's keys under new
+    names and none of ``scale``'s: config 2-4 under
+    ``scale_validation_<suffix>``, the 1500- and 5000-step scores (here 2
+    and 4) under ``quality_sf1_tm3_<suffix>`` / ``..._extended_<suffix>``
+    with the changed fields beside them; the critic A/B under
+    ``critic_conditioning_ab``; --out gets the record and the A/B's
+    partial results."""
+    rec, _, mod, out = record_parts
+    keys = jax_keys()
+    assert set(rec) == {"card", "critic_conditioning_ab"} | {
+        f"{k}_{sfx}" for sfx in ("uncond", "uncond_linear") for k in (
+            "scale_validation", "quality_sf1_tm3",
+            "quality_sf1_tm3_extended")}
+    for sfx, fields in (("uncond", {"d_conditional": False}),
+                        ("uncond_linear", {"d_conditional": False,
+                                           "output_activation": "linear"})):
+        sv = rec[f"scale_validation_{sfx}"]
+        assert set(sv) == keys["scale"] - {"quality_sf1_tm3"} | set(fields)
+        assert sv["config3_steps"] == 2
+        q = rec[f"quality_sf1_tm3_{sfx}"]
+        assert set(q) == keys["evaluate"] | set(fields)
+        assert q["step"] == 2 and {k: q[k] for k in fields} == fields
+        ext = rec[f"quality_sf1_tm3_extended_{sfx}"]
+        assert ext["step"] == 4 and set(ext) >= keys["evaluate"]
+    assert common.non_finite(rec) == []
+    assert set(os.listdir(out)) == {"record.json", "partial_critic.json"}
+    assert mod.PARTS == ("roundtrip", "scale", "scale_uncond",
+                         "scale_uncond_linear", "convergence", "critic",
+                         "tf32")
+
+
+@pytest.mark.parametrize("sfx, fields", [
+    ("uncond", {"d_conditional": False}),
+    ("uncond_linear", {"d_conditional": False,
+                       "output_activation": "linear"})])
+def test_record_scale_variant_trains_its_architecture(record_parts, sfx,
+                                                      fields):
+    """The run directory's architecture.json, written by cli.train at the
+    start and again at the continuation, holds ``d_conditional`` false
+    (and the linear head) and otherwise ``common.ARCH_PATH``'s
+    architecture."""
+    rec, runs, _, _ = record_parts
+    logdir = os.path.join(runs, f"vcc10_logdir_{sfx}", "train")
+    (run_dir,) = os.listdir(logdir)
+    got = port_config.Architecture.load(os.path.join(logdir, run_dir,
+                                                     "architecture.json"))
+    assert got.d_conditional is False
+    assert got == dataclasses.replace(SMALL, **fields)
+    assert SMALL.d_conditional is True and SMALL.output_activation == "tanh"
+
+
+def test_record_critic_ab_trains_both_critics(record_parts):
+    """``critic`` runs convergence_ab --ab critic: the ``uncond`` and
+    ``cond`` arms to each milestone under ``critic_conditioning_ab``, each
+    arm's run directory holding its critic's ``d_conditional``."""
+    rec, runs, _, out = record_parts
+    ab = rec["critic_conditioning_ab"]
+    assert set(ab) == jax_keys()["convergence"]
+    assert ab["ab"] == "critic" and list(ab["models"]) == ["uncond", "cond"]
+    for name, want in (("uncond", False), ("cond", True)):
+        assert [m["step"] for m in ab["models"][name]] == [2, 4]
+        arch = port_config.Architecture.load(os.path.join(
+            runs, "vcc10_critic", name, "architecture.json"))
+        assert arch.d_conditional is want
+    assert common.read_record(os.path.join(out, "partial_critic.json")) == ab
 
 
 def test_non_finite_finds_every_bad_number():

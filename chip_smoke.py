@@ -25,7 +25,10 @@ non-zero and prints no ``"ok"`` line):
                its name and power limit; turn TF32 off for the
                comparisons.
   2. build   — compile the nine CUDA kernels (tpuvc_torch/csrc) with nvcc
-               into build/tpuvc_torch/ and load them.
+               into build/tpuvc_torch/ and the host-IO library
+               (tpuvc_torch/native/io.cc) with g++ into
+               build/tpuvc_torch_host/, both through
+               tpuvc_torch/utils/aot_cache.py, and load them.
   3. kernels — one analysis per f0 path (default, harvest,
                harvest_decim2) on the card at the rate phase's
                shapes and one fused model call on the
@@ -108,6 +111,22 @@ non-zero and prints no ``"ok"`` line):
                (init and all-reduce); cli.convert --all_pairs
                --data_parallel on phase 6's checkpoint against phase 7's
                files (SNR >= 40 dB).
+ 11. host    — (run after phase 8, on phase 6's corpus and normalizer)
+               the host-IO library and the Grain-order input pipeline: a
+               second cached_library call must be a hit that compiles
+               nothing; every WAV of the corpus decoded by
+               tpuvc_torch.native bit-equal to the scipy path; native
+               record reads equal to np.fromfile and from_bin_dir equal
+               to its memory-mapped load; a 256-row gather with 1 and 8
+               threads equal to numpy's; grain_batches over the
+               memory-mapped corpus for two epochs (each epoch a
+               permutation, labels and rows in its order); then 10
+               full-width VAW-GAN steps (batch 256) on the card fed by
+               grain_batches through make_trainer(...).train, cuDNN's
+               TF32 on as in cli.train (every logged metric finite, no
+               hand kernel launched).  Host times of the card's machine
+               (informational): ms per WAV native vs scipy, ms per
+               256-row gather native vs numpy, grain_batches batches/s.
   9. bench   — the port's measurement entry points (tpuvc_torch.bench)
                at reduced repetitions, counters zeroed just before and
                read just after each, each printing its JSON line:
@@ -257,13 +276,15 @@ def phase_device():
 
 
 def phase_build():
+    from tpuvc_torch import native
     from tpuvc_torch.ops import _build
-    t0 = time.perf_counter()
-    path = _build.build(verbose=True)
-    _build.lib()
-    say(f"[2 build] {os.path.relpath(path, ROOT)} ready in "
-        f"{time.perf_counter() - t0:.3f} s (nvcc "
-        f"{'ran' if _build.build_seconds is not None else 'cached'})")
+    for lib, tool in ((_build, "nvcc"), (native, "g++")):
+        t0 = time.perf_counter()
+        path = lib.build(**({"verbose": True} if lib is _build else {}))
+        lib.lib()
+        say(f"[2 build] {os.path.relpath(path, ROOT)} ready in "
+            f"{time.perf_counter() - t0:.3f} s ({tool} "
+            f"{'ran' if lib.build_seconds is not None else 'cached'})")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -2234,6 +2255,177 @@ def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
     return out
 
 
+# --- phase 11: host --------------------------------------------------------
+
+def host_ms(fn, reps: int) -> float:
+    """Median host wall time of fn() in ms over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def phase_host(dev, corpus: str, tmp: str, arch_path: str = TRAIN_ARCH,
+               steps: int = 10, batch: int | None = None,
+               gather: int = 256, reps: int = 20) -> dict:
+    """The host-IO library (tpuvc_torch.native) and the Grain-order input
+    pipeline (tpuvc_torch.data.grain_pipeline) on phase 6's corpus and
+    normalizer: a second cached_library call is a hit; every WAV decoded
+    natively is bit-equal to the scipy path; native record reads equal
+    np.fromfile; a ``gather``-row gather with 1 and 8 threads equals numpy
+    fancy indexing; grain_batches over the memory-mapped corpus for two
+    epochs reads each epoch's permutation; ``steps`` VAW-GAN steps of
+    ``arch_path`` (batch ``batch``, the architecture's by default) fed by
+    grain_batches through make_trainer(...).train on ``dev`` log finite
+    metrics and launch no hand kernel.  Host times (medians of ``reps``
+    calls, of 3 passes for the WAVs) are informational."""
+    import dataclasses
+    import torch
+    from tpuvc_torch import native
+    from tpuvc_torch.data.dataset import FrameDataset
+    from tpuvc_torch.data.grain_pipeline import epoch_order, grain_batches
+    from tpuvc_torch.data.normalizer import Tanhize
+    from tpuvc_torch.io import corpus as corpus_io
+    from tpuvc_torch.io.wav import read_wav_scipy
+    from tpuvc_torch.ops._build import read_counts, reset_counts
+    from tpuvc_torch.train.trainer import make_trainer
+    from tpuvc_torch.utils import aot_cache
+    from tpuvc_torch.utils.config import Architecture
+    t_phase = time.perf_counter()
+    rec: dict = {}
+
+    # the library: built at first use, a hit now
+    path = native.build()
+    compiles: list = []
+    again = aot_cache.cached_library(
+        native.TAG, native.BUILD_DIR, [native.SOURCE],
+        native.CXX_FLAGS + native.LIBS, compiles.append, native._gxx())
+    if again != path or compiles:
+        raise AssertionError(f"host library: the second cached_library "
+                             f"call compiled ({again} vs {path})")
+    rec["library"] = os.path.relpath(path, ROOT)
+    rec["build_s"] = native.build_seconds
+
+    # WAV decoding: native against scipy, bit for bit
+    wavs = [p for split in (corpus_io.TRAIN_SPLIT, corpus_io.TEST_SPLIT)
+            for p in corpus_io.list_wavs(corpus, split)]
+    for p in wavs:
+        got = native.read_wav_native(p)
+        ref, fs = read_wav_scipy(p)
+        if (got is None or got[1] != fs
+                or not np.array_equal(got[0].astype(np.float64), ref)):
+            raise AssertionError(f"{p}: the native decoder differs from "
+                                 "scipy's")
+    rec["wav_ms_per_file"] = {
+        "native": host_ms(lambda: [native.read_wav_native(p)
+                                   for p in wavs], 3) / len(wavs),
+        "scipy": host_ms(lambda: [read_wav_scipy(p) for p in wavs],
+                         3) / len(wavs)}
+
+    # records: native reads against np.fromfile and the memory map
+    for p in corpus_io.list_bins(corpus, corpus_io.TRAIN_SPLIT):
+        if not np.array_equal(native.read_f32_native(p),
+                              np.fromfile(p, dtype=np.float32)):
+            raise AssertionError(f"{p}: read_f32_native differs from "
+                                 "np.fromfile")
+    ds = FrameDataset.from_bin_dir(corpus)
+    mapped = FrameDataset.from_bin_dir(corpus, mmap=True)
+    if not (np.array_equal(ds.x, mapped.x)
+            and np.array_equal(ds.y, mapped.y)):
+        raise AssertionError("from_bin_dir: the native records differ "
+                             "from the memory map's")
+    n = len(ds)
+
+    # the gather: 1 and 8 threads against numpy
+    idx = np.random.default_rng(0).integers(0, n, gather)
+    for threads in (1, 8):
+        if not np.array_equal(native.gather_rows(ds.x, idx, threads),
+                              ds.x[idx]):
+            raise AssertionError(f"gather_rows ({threads} threads) "
+                                 "differs from numpy")
+    rec["gather_ms"] = {
+        "native_1": host_ms(lambda: native.gather_rows(ds.x, idx, 1), reps),
+        "native_8": host_ms(lambda: native.gather_rows(ds.x, idx, 8), reps),
+        "numpy": host_ms(lambda: ds.x[idx], reps)}
+
+    # grain_batches over the memory-mapped corpus, two epochs
+    arch = Architecture.load(os.path.join(ROOT, arch_path))
+    b = batch or arch.training.batch_size
+    arch = dataclasses.replace(arch, training=dataclasses.replace(
+        arch.training, batch_size=b))
+    norm = Tanhize.from_etc(os.path.join(corpus, "etc"))
+    t0 = time.perf_counter()
+    stream = list(grain_batches(mapped, b, seed=0, normalizer=norm,
+                                num_epochs=2))
+    dt = time.perf_counter() - t0
+    orders = [epoch_order(n, 0, e) for e in (0, 1)]
+    if any(not np.array_equal(np.sort(o), np.arange(n)) for o in orders):
+        raise AssertionError("grain_batches: an epoch is not a permutation")
+    want = np.concatenate(orders)[:len(stream) * b]
+    labels = np.concatenate([yb for _, yb in stream])
+    rows = np.stack([norm.forward(ds.x[i]).astype(np.float32)
+                     for i in want[:b]])
+    if (len(stream) != 2 * n // b or not np.array_equal(labels, ds.y[want])
+            or not np.array_equal(stream[0][0], rows)):
+        raise AssertionError(f"grain_batches: {len(stream)} batches of {b} "
+                             f"over 2 epochs of {n} frames, or labels or "
+                             "rows out of the epochs' order")
+    rec["grain"] = {"frames": n, "batch": b, "batches": len(stream),
+                    "batches_per_s": len(stream) / dt}
+    del stream
+    say(f"[11 host] {rec['library']}: g++ "
+        + (f"built it in {rec['build_s']:.3f} s at first use"
+           if rec["build_s"] is not None else "did not run (on disk)")
+        + f"; a second cached_library call was a hit; {len(wavs)} WAVs "
+        f"bit-equal native vs scipy; native records equal np.fromfile's "
+        f"and the memory map's ({n} frames); {gather}-row gathers with 1 "
+        f"and 8 threads equal numpy's; grain_batches over the memory map: "
+        f"2 epochs in {rec['grain']['batches']} batches of {b}, each epoch "
+        "a permutation, labels and rows in its order")
+
+    # full-width training fed by grain_batches
+    run_dir = os.path.join(tmp, "grain_run")
+    trainer = make_trainer(arch, run_dir, use_tensorboard=False,
+                           device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with cudnn_tf32(True):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(grain_batches(mapped, b, seed=0, normalizer=norm),
+                      steps, log_every=1, save_every=steps)
+        sync()
+        rec["train_s"] = time.perf_counter() - t0
+    trainer.close()
+    launches = read_counts()
+    with open(os.path.join(run_dir, "events", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if ([r["step"] for r in logged] != list(range(1, steps + 1))
+            or not all(math.isfinite(v) for r in logged
+                       for v in r.values())
+            or any(launches.values())):
+        raise AssertionError(f"grain-fed training: logged {logged}, kernel "
+                             f"launches {launches}")
+    rec["train"] = {"steps": steps, "last": logged[-1]}
+    say(f"[11 host] {steps} {arch.model} steps ({arch_path}, batch {b}, "
+        f"n_unroll {arch.training.n_unroll}) on {dev} fed by grain_batches "
+        f"through make_trainer(...).train in {rec['train_s']:.3f} s (with "
+        f"start-up): every logged metric finite, last "
+        + ", ".join(f"{k} {v:.4f}" for k, v in logged[-1].items()
+                    if k not in ("step", "time")))
+    w, g = rec["wav_ms_per_file"], rec["gather_ms"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[11 host] host times of the card's machine (informational): WAV "
+        f"decode {w['native']:.4f} ms per file native, {w['scipy']:.4f} "
+        f"scipy; {gather}-row gather {g['native_1']:.4f} ms native 1 "
+        f"thread, {g['native_8']:.4f} 8 threads (io.cc threads from 1024 "
+        f"rows), {g['numpy']:.4f} numpy; grain_batches "
+        f"{rec['grain']['batches_per_s']:.1f} batches/s of {b}")
+    return rec
+
+
 def profile_call(fn, out_dir: str, fname: str,
                  phase: str = "5 rate") -> dict:
     """torch.profiler over one call: device time by kernel (table in
@@ -2373,7 +2565,11 @@ def main() -> int:
                                   train["run_dir"],
                                   os.path.join(tmp, "converted",
                                                "all_pairs"), tmp)
-    say(f"[8 parallel] card: {smi}")
+        say(f"[8 parallel] card: {smi}")
+        torch.cuda.empty_cache()
+        host = phase_host(dev, train["corpus"], tmp)
+        say(f"[11 host] phase 11 took {host['phase_s']:.1f} s; card: "
+            f"{smi}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bench = phase_bench(dev)
@@ -2392,8 +2588,8 @@ def main() -> int:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
                        "card_vs_cpu_snr_db": snrs, "entry_points": entry,
                        "rate": rates, "train": train, "convert": convert,
-                       "parallel": parallel, "bench": bench,
-                       "quality": quality},
+                       "parallel": parallel, "host": host,
+                       "bench": bench, "quality": quality},
                       f, indent=1)
     say(f"[5 rate] card: {smi}")
     say(json.dumps(kernels_record(kern, launches)))

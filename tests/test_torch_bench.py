@@ -359,7 +359,7 @@ def test_throughput_entry_keys_and_snrs(bench_phase):
     rec = bench_phase["throughput"]
     assert set(rec) == JAX_KEYS["throughput"]
     assert rec["batch"] == 2 and rec["utterance_s"] == 0.5
-    assert rec["encoding"] == "ulaw8" and rec["aot_cache"] is False
+    assert rec["encoding"] == "ulaw8" and rec["aot_cache"] is True
     assert rec["device"] == "cpu" and rec["value"] > 0
     assert set(rec["strategies"]) == {"inline_d2", "inline_d3",
                                       "threaded_d3"}

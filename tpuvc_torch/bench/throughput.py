@@ -30,7 +30,9 @@ Prints ONE JSON line with ``bench.py``'s keys:
                    otherwise.  ``both`` also measures the int16 and pcm12
                    drains (``int16``, ``pcm12``; 3 repetitions, fewer if
                    ``reps`` is)
-  aot_cache        false: the port has no executable cache
+  aot_cache        true: the port's compiled libraries (the kernels and the
+                   host-IO library) are always kept by
+                   ``utils/aot_cache.py``; PyTorch compiles no graph
   device           the card's name
 ``vs_baseline`` divides by the 1000x target of ``BASELINE.json``.
 """
@@ -139,7 +141,7 @@ def measure(batch: int = 128, dur_s: float = 4.0, encoding: str = "ulaw8",
         "latency_s": round(lat, 4),
         "latency_x_realtime": round(audio_seconds / lat, 2),
         "compile_wall_s": compile_wall,
-        "aot_cache": False,
+        "aot_cache": True,
         "device": common.device_name(dev),
     }
     result.update(out)

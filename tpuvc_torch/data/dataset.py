@@ -4,11 +4,12 @@ Port of ``tpuvc/data/dataset.py``.  Frames are i.i.d. samples: the
 corpus' normalized-log-SP frames and speaker labels live in one host array,
 and ``BatchStream`` emits epoch-shuffled minibatches from it.  The
 permutations are numpy's, drawn from ``np.random.default_rng(seed)`` as on
-the JAX side, and rows are gathered by numpy fancy indexing (the JAX side's
-native gather gives the same rows), so both packages emit the same batches
-for the same seed, after ``skip`` too.  Only the sp and label columns of
-each record are kept; normalization happens per minibatch, so no second
-full-corpus copy is made.
+the JAX side, and rows are gathered by the port's native threaded gather
+(``tpuvc_torch/native``, as the JAX side gathers with its own), so both
+packages emit the same batches for the same seed, after ``skip`` too.
+Record files are read by the native reader unless memory-mapped.  Only
+the sp and label columns of each record are kept; normalization happens
+per minibatch, so no second full-corpus copy is made.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from collections.abc import Iterator
 
 import numpy as np
 
+from tpuvc_torch import native
 from tpuvc_torch.data.normalizer import Tanhize
 from tpuvc_torch.dsp.constants import FEAT_DIM, RECORD_DIM, SP_DIM
 from tpuvc_torch.io import corpus as corpus_io
@@ -39,8 +41,12 @@ class FrameDataset:
                 f"no .bin records under {corpus_root}/bin/{split}")
         xs, ys = [], []
         for p in paths:
-            raw = (np.memmap(p, dtype=np.float32, mode="r") if mmap
-                   else np.fromfile(p, dtype=np.float32))
+            if mmap:
+                raw = np.memmap(p, dtype=np.float32, mode="r")
+            else:
+                raw = native.read_f32_native(p)
+                if raw is None:
+                    raise OSError(f"{p}: cannot open the record file")
             if raw.size % RECORD_DIM != 0:
                 raise ValueError(
                     f"{p}: {raw.size} floats is not a multiple of "
@@ -106,7 +112,7 @@ class BatchStream:
         self._advance_epoch()
         idx = self._perm[self._i:self._i + self._bs]
         self._i += self._bs
-        xb = self._ds.x[idx]
+        xb = native.gather_rows(self._ds.x, idx)
         if self._norm is not None:
             xb = self._norm.forward(xb).astype(np.float32)
         return xb, self._ds.y[idx]

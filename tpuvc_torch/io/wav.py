@@ -4,9 +4,13 @@ The port's own copy of ``tpuvc/io/wav.py``: ``resample`` is a
 rational-ratio polyphase resampler (``scipy.signal.resample_poly``,
 Kaiser-windowed low-pass), so a 22.05/44.1/48 kHz recording converts at
 the pipeline's 16 kHz (output length ceil(len(x) * fs_out / fs_in));
-``read_wav`` decodes with scipy's RIFF reader (the JAX package's native
-PCM16 decoder gives the same float64 samples: int16 / 32768 is exact in
-both) and ``write_wav`` writes 16-bit PCM.
+``read_wav`` decodes PCM16 mono and stereo with the port's native decoder
+(``tpuvc_torch/native``) and every other encoding with scipy's RIFF reader
+(both give the same float64 samples for PCM16: int16 / 32768 and the
+stereo average are exact in float32 too), and ``write_wav`` writes 16-bit
+PCM.  The scipy path scales each channel before averaging them, so a
+stereo 8-bit or 32-bit file comes out in [-1, 1] (the JAX package's
+fallback averages first and leaves such a file unscaled).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from fractions import Fraction
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+from tpuvc_torch import native
 
 _PCM_SCALE = {
     np.dtype(np.int16): 1.0 / 32768.0,
@@ -38,19 +44,33 @@ def resample(x: np.ndarray, fs_in: int, fs_out: int) -> np.ndarray:
                          fr.denominator)
 
 
-def read_wav(path: str,
-             target_fs: int | None = None) -> tuple[np.ndarray, int]:
-    """A WAV file -> (float64 mono waveform in [-1, 1], sample rate); with
-    ``target_fs`` resampled to that rate (librosa.load(path, sr=...))."""
+def read_wav_scipy(path: str) -> tuple[np.ndarray, int]:
+    """A WAV file -> (float64 mono waveform in [-1, 1], sample rate), by
+    scipy's RIFF reader."""
     fs, data = wavfile.read(path)
-    if data.ndim > 1:
-        data = data.mean(axis=1)
     if data.dtype in _PCM_SCALE:
         offset = 128.0 if data.dtype == np.uint8 else 0.0
         x = (data.astype(np.float64) - offset) * _PCM_SCALE[data.dtype]
+        if x.ndim > 1:
+            x = x.mean(axis=1)
     else:
+        if data.ndim > 1:
+            data = data.mean(axis=1)
         x = data.astype(np.float64)
-    fs = int(fs)
+    return x, int(fs)
+
+
+def read_wav(path: str,
+             target_fs: int | None = None) -> tuple[np.ndarray, int]:
+    """A WAV file -> (float64 mono waveform in [-1, 1], sample rate); with
+    ``target_fs`` resampled to that rate (librosa.load(path, sr=...)).
+    PCM16 goes through the native decoder, anything it refuses through
+    scipy."""
+    fast = native.read_wav_native(path)
+    if fast is not None:
+        x, fs = fast[0].astype(np.float64), fast[1]
+    else:
+        x, fs = read_wav_scipy(path)
     if target_fs is not None and fs != target_fs:
         x, fs = resample(x, fs, target_fs), int(target_fs)
     return x, fs

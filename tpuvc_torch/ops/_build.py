@@ -3,9 +3,10 @@
 Every ``tpuvc_torch/csrc/*.cu`` file exports a plain C launcher that
 returns ``cudaGetLastError()``.  They are compiled together with ``nvcc``
 for ``sm_90a`` into one shared library under ``build/tpuvc_torch/`` at the
-repository root, named by a hash of the sources (an edit rebuilds), and
-loaded with ``ctypes``.  Nothing here runs at import time: the first
-kernel launch calls :func:`lib`.
+repository root, kept by ``utils/aot_cache.py`` under a name keyed by the
+sources, the flags and nvcc's version (an edit rebuilds; the two most
+recently used libraries stay), and loaded with ``ctypes``.  Nothing here
+runs at import time: the first kernel launch calls :func:`lib`.
 
 No ``--use_fast_math``: the event kernel must be bit-exact against its
 plain version, and the harmonic and window kernels rely on IEEE
@@ -15,17 +16,18 @@ plain version, and the harmonic and window kernels rely on IEEE
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import sys
-import tempfile
 import threading
+import time
+
+from tpuvc_torch.utils import aot_cache
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpuvc_torch")
+TAG = "libtpuvc_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -71,42 +73,24 @@ def _nvcc() -> str:
                        "need the CUDA toolkit (set CUDA_HOME)")
 
 
-def library_path() -> str:
-    h = hashlib.sha256()
-    for path in sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libtpuvc_kernels_{h.hexdigest()[:16]}.so")
-
-
 def build(verbose: bool = False) -> str:
-    """Compile the kernels unless a library for these sources exists."""
-    import time
-    global build_seconds
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
+    """Compile the kernels unless a library for these sources exists;
+    ``build_seconds`` is the compile's time when this process ran one."""
     cu = [s for s in sources() if s.endswith(".cu")]
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
-    return out
+    nvcc = _nvcc()
+
+    def compile(out: str) -> None:
+        global build_seconds
+        t0 = time.perf_counter()
+        log = aot_cache.run([nvcc, *NVCC_FLAGS,
+                             *(["-Xptxas", "-v"] if verbose else []),
+                             "-o", out, *cu])
+        build_seconds = time.perf_counter() - t0
+        if verbose:
+            print(log, flush=True)
+
+    return aot_cache.cached_library(TAG, BUILD_DIR, sources(), NVCC_FLAGS,
+                                    compile, nvcc)
 
 
 def lib() -> ctypes.CDLL:

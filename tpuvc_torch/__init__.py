@@ -23,7 +23,10 @@ sub-package names so each module's counterpart is easy to find:
             dataset, the synthetic corpus and the Tanhize normalizer
   io/, utils/  WAV I/O and resampling, the .bin records and the corpus
             layout, the architecture record, the device default, run
-            directories, spectrogram images and the profiler hook
+            directories, spectrogram images, the train CLI's profiler
+            trace and the stage spans (``utils/profiling.span``) that
+            name the serving path's, the streaming tick's and the
+            trainer's stages in a profile
 
 It imports ``torch`` and never ``jax`` or the ``tpuvc`` package.  Its
 entry points run on the CUDA card unless the caller passes

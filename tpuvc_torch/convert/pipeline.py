@@ -37,6 +37,16 @@ from tpuvc_torch.models.losses import reparameterize
 from tpuvc_torch.ops import ulaw
 from tpuvc_torch.parallel import mesh as mesh_lib
 from tpuvc_torch.utils.device import resolve
+from tpuvc_torch.utils.profiling import span
+
+# samples of every utterance converted, and samples of the rows analysed
+# for them (the padded length times the rows, a ragged tail's repeated rows
+# included): their ratio is the share of the work that was not padding.
+# Plain module integers, like the kernels' launch counters: a caller reads
+# them and sets them to 0.  Rows that ``MultiStreamConverter`` repeats to
+# keep its tick's shape count as real here.
+samples_real = 0
+samples_analysed = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +93,18 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
         bsz = xs.shape[0]
         f0, sp, ap = world_features(xs, cfg)
         n = f0.shape[1]
-        u, en = _normalize_sp(sp, xmin, xmax)
-        z_mu, z_lv = model.encode(u.reshape(bsz * n, -1))
-        z = (reparameterize(z_mu, z_lv, eps.reshape(z_mu.shape)) if sample_z
-             else z_mu)
-        y_vec = y_trgs.to(torch.int64).repeat_interleave(n)
-        u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
-        sp_conv = _denormalize_sp(u_conv, en, xmin, xmax)
-        f0_conv = convert_f0(f0, mu_srcs, sd_srcs, mu_trgs, sd_trgs)
-        return synthesize(f0_conv, sp_conv, ap, noise, fs=cfg.fs,
-                          hop=cfg.hop, fft_size=cfg.fft_size)
+        with span("vc.model"):
+            u, en = _normalize_sp(sp, xmin, xmax)
+            z_mu, z_lv = model.encode(u.reshape(bsz * n, -1))
+            z = (reparameterize(z_mu, z_lv, eps.reshape(z_mu.shape))
+                 if sample_z else z_mu)
+            y_vec = y_trgs.to(torch.int64).repeat_interleave(n)
+            u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
+            sp_conv = _denormalize_sp(u_conv, en, xmin, xmax)
+            f0_conv = convert_f0(f0, mu_srcs, sd_srcs, mu_trgs, sd_trgs)
+        with span("vc.synth"):
+            return synthesize(f0_conv, sp_conv, ap, noise, fs=cfg.fs,
+                              hop=cfg.hop, fft_size=cfg.fft_size)
 
     return convert
 
@@ -220,6 +232,40 @@ class Converter:
             raise ValueError("convert_batch serves over a local mesh "
                              "(parallel.mesh.make_mesh): serving across "
                              "processes is not supported")
+        outs: list[np.ndarray] = []
+        with span("vc.convert_batch"):
+            chunks = self._chunks(xs, srcs, trgs, seed, fs, mesh)
+            last = False
+            while not last:
+                # the first chunk's preparation holds the call's own
+                with span("vc.prep"):
+                    lens, args, seeds, n_samples, last = next(chunks)
+                if mesh is None:
+                    y = self._convert_rows(self._fn, self.device, self._xmin,
+                                           self._xmax, args, seeds,
+                                           n_samples)
+                else:
+                    reps = self._replicas_for(mesh)
+                    shards = mesh_lib.shard_batch(mesh, *args)
+                    k = len(seeds) // mesh.size
+
+                    def shard(i, d):
+                        fn, xmin, xmax = reps[i]
+                        return self._convert_rows(
+                            fn, d, xmin, xmax, [v[i] for v in shards],
+                            seeds[i * k:(i + 1) * k], n_samples)
+
+                    y = np.concatenate(mesh_lib.run_shards(mesh, shard))
+                outs.extend(y[i, :n] for i, n in enumerate(lens))
+        return outs
+
+    def _chunks(self, xs, srcs, trgs, seed, fs, mesh):
+        """``convert_batch``'s preparation: the utterances at the
+        converter's rate, the speakers checked, the bucket and the rows per
+        chunk chosen on the first ``next``; then per chunk (the lengths of
+        its real rows, the rows' arrays, their seeds, the output length,
+        whether it is the last), its rows padded and stacked."""
+        global samples_real, samples_analysed
         xs = [self._coerce_fs(x, fs) for x in xs]
         a = self.assets
         self._check_speaker_stats(*[a.speakers.index(s) for s in srcs],
@@ -239,14 +285,14 @@ class Converter:
         b = max(n_dev, (b // n_dev) * n_dev)
         si = np.array([a.speakers.index(s) for s in srcs], np.int64)
         ti = np.array([a.speakers.index(t) for t in trgs], np.int64)
-        reps = None if mesh is None else self._replicas_for(mesh)
-        outs: list[np.ndarray] = []
+        samples_real += sum(lens)
         for lo in range(0, n, b):
             hi = min(lo + b, n)
             pad_b = b - (hi - lo)          # ragged tail: repeat last row
             rows = [np.pad(np.asarray(x, np.float32), (0, t_pad - len(x)))
                     for x in xs[lo:hi]]
             rows += [rows[-1]] * pad_b
+            samples_analysed += b * t_pad
             idx = np.concatenate([np.arange(lo, hi),
                                   np.full(pad_b, hi - 1, np.int64)])
             if np.ndim(seed):
@@ -256,22 +302,7 @@ class Converter:
             args = (np.stack(rows), ti[idx], a.f0_mu[si[idx]],
                     a.f0_sigma[si[idx]], a.f0_mu[ti[idx]],
                     a.f0_sigma[ti[idx]])
-            if mesh is None:
-                y = self._convert_rows(self._fn, self.device, self._xmin,
-                                       self._xmax, args, seeds, n_samples)
-            else:
-                shards = mesh_lib.shard_batch(mesh, *args)
-                k = b // n_dev
-
-                def shard(i, d):
-                    fn, xmin, xmax = reps[i]
-                    return self._convert_rows(
-                        fn, d, xmin, xmax, [v[i] for v in shards],
-                        seeds[i * k:(i + 1) * k], n_samples)
-
-                y = np.concatenate(mesh_lib.run_shards(mesh, shard))
-            outs.extend(y[i, :lens[lo + i]] for i in range(hi - lo))
-        return outs
+            yield lens[lo:hi], args, seeds, n_samples, hi == n
 
     def _convert_rows(self, fn, dev, xmin, xmax, args, seeds,
                       n_samples: int) -> np.ndarray:
@@ -282,11 +313,16 @@ class Converter:
         xs, ti, mu_s, sd_s, mu_t, sd_t = args
         put = lambda v, dt=torch.float32: torch.as_tensor(  # noqa: E731
             v, dtype=dt, device=dev)
-        y = fn(put(xs), put(ti, torch.int64), xmin, xmax, put(mu_s),
-               put(sd_s), put(mu_t), put(sd_t),
-               synthesis_noise(seeds, n_samples, dev))
-        return self._decode_transfer(self._encode_transfer(y).cpu().numpy(),
-                                     n_samples)
+        with span("vc.upload"):
+            xs, ti = put(xs), put(ti, torch.int64)
+            mu_s, sd_s, mu_t, sd_t = (put(v) for v in (mu_s, sd_s, mu_t,
+                                                       sd_t))
+        with span("vc.noise"):
+            noise = synthesis_noise(seeds, n_samples, dev)
+        y = fn(xs, ti, xmin, xmax, mu_s, sd_s, mu_t, sd_t, noise)
+        with span("vc.fetch"):
+            return self._decode_transfer(
+                self._encode_transfer(y).cpu().numpy(), n_samples)
 
     def convert(self, x: np.ndarray, src: str, trg: str, seed: int = 0,
                 fs: int | None = None) -> np.ndarray:

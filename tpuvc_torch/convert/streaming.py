@@ -20,6 +20,7 @@ import numpy as np
 
 from tpuvc_torch.convert.pipeline import Converter
 from tpuvc_torch.dsp.constants import DEFAULT_WORLD, WorldConfig
+from tpuvc_torch.utils.profiling import span
 
 
 class StreamingConverter:
@@ -150,26 +151,30 @@ class MultiStreamConverter:
 
     def _tick(self, ready: list[int]) -> None:
         n = len(self.streams)
-        idx = ready + [ready[-1]] * (n - len(ready))
-        rows, seeds = [], []
-        for i in idx:
-            st = self.streams[i]
-            rows.append(st._buf[: st.chunk + 2 * st.halo])
-            seeds.append(st.seed + st._pos)
-        ys = self.conv.convert_batch(
-            rows, [self.pairs[i][0] for i in idx],
-            [self.pairs[i][1] for i in idx],
-            seed=np.asarray(seeds, np.int32), mesh=self.mesh)
-        for j, i in enumerate(ready):
-            st = self.streams[i]
-            st._pos += 1
-            y = np.asarray(ys[j], np.float32)
-            first = st._pos == 1
-            lead = 0 if first else st.halo
-            keep = st.chunk + (st.halo if first else 0)
-            piece = st._emit(y, lead, keep)
-            st._buf = st._buf[st.chunk:]
-            self._pending[i] = np.concatenate([self._pending[i], piece])
+        with span("vc.tick"):
+            with span("vc.tick_rows"):
+                idx = ready + [ready[-1]] * (n - len(ready))
+                rows, seeds = [], []
+                for i in idx:
+                    st = self.streams[i]
+                    rows.append(st._buf[: st.chunk + 2 * st.halo])
+                    seeds.append(st.seed + st._pos)
+            ys = self.conv.convert_batch(
+                rows, [self.pairs[i][0] for i in idx],
+                [self.pairs[i][1] for i in idx],
+                seed=np.asarray(seeds, np.int32), mesh=self.mesh)
+            with span("vc.tick_emit"):
+                for j, i in enumerate(ready):
+                    st = self.streams[i]
+                    st._pos += 1
+                    y = np.asarray(ys[j], np.float32)
+                    first = st._pos == 1
+                    lead = 0 if first else st.halo
+                    keep = st.chunk + (st.halo if first else 0)
+                    piece = st._emit(y, lead, keep)
+                    st._buf = st._buf[st.chunk:]
+                    self._pending[i] = np.concatenate(
+                        [self._pending[i], piece])
 
     def _ready(self) -> list[int]:
         return [i for i, s in enumerate(self.streams)
@@ -189,14 +194,15 @@ class MultiStreamConverter:
         """Buffer samples for one stream; returns that stream's audio
         converted by prior ticks.  Auto-ticks while EVERY stream has a
         full window (the synchronized steady state)."""
-        st = self.streams[stream_id]
-        st._buf = np.concatenate([st._buf,
-                                  np.asarray(samples, np.float32)])
-        while len(self._ready()) == len(self.streams):
-            self._tick(list(range(len(self.streams))))
-        out = self._pending[stream_id]
-        self._pending[stream_id] = np.zeros(0, np.float32)
-        return out
+        with span("vc.push"):
+            st = self.streams[stream_id]
+            st._buf = np.concatenate([st._buf,
+                                      np.asarray(samples, np.float32)])
+            while len(self._ready()) == len(self.streams):
+                self._tick(list(range(len(self.streams))))
+            out = self._pending[stream_id]
+            self._pending[stream_id] = np.zeros(0, np.float32)
+            return out
 
     def flush_all(self) -> list[np.ndarray]:
         """Flush every stream: drain remaining full windows through

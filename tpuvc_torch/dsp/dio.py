@@ -15,6 +15,11 @@ needs no switch, as the kernel is the faster route on the card.  The frame
 reads are ``dio._tracks_from_pairs``.  The two candidate-guided extension
 passes are serial by data dependence and run as Python loops over frames,
 vectorised over the batch.
+
+Two stage spans (``utils/profiling.span``) split a profile of ``dio``:
+``dio_bank`` (decimation, the filter bank and the event tracks: K1 and K7)
+and ``dio_contour`` (the candidate pick, the fix steps and both extension
+passes, the host-launched loops).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, DIO_ALLOWED_RANGE,
                                        DIO_VOICE_RANGE_MINIMUM)
 from tpuvc_torch.ops.arith import rdiv
 from tpuvc_torch.ops.events import event_block_pairs, top2_block_scans
+from tpuvc_torch.utils.profiling import span
 
 
 def _boundary_f0s(f0_floor: float, f0_ceil: float) -> tuple[float, ...]:
@@ -170,19 +176,29 @@ def dio(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
     while hop % ratio:
         ratio -= 1
     fs_d = fs / ratio
-    y = filters.decimate(x, ratio)
-    y = y - torch.mean(y, dim=-1, keepdim=True)
     bounds = _boundary_f0s(f0_floor, f0_ceil)
-    filtered = filters.lowpass_bank_fft(y, fs_d, bounds)     # [B, C, Td]
-    c = filtered.shape[1]
-    stride = hop // ratio
-    tracks = _bank_tracks(filtered.reshape(bsz * c, -1), fs_d, n_frames,
-                          stride).reshape(bsz, c, 4, n_frames)
+    with span("dio_bank"):
+        y = filters.decimate(x, ratio)
+        y = y - torch.mean(y, dim=-1, keepdim=True)
+        filtered = filters.lowpass_bank_fft(y, fs_d, bounds)  # [B, C, Td]
+        c = filtered.shape[1]
+        stride = hop // ratio
+        tracks = _bank_tracks(filtered.reshape(bsz * c, -1), fs_d, n_frames,
+                              stride).reshape(bsz, c, 4, n_frames)
+    with span("dio_contour"):
+        return _contour(tracks, bounds, f0_floor, f0_ceil)
+
+
+def _contour(tracks: torch.Tensor, bounds: tuple[float, ...],
+             f0_floor: float, f0_ceil: float) -> torch.Tensor:
+    """The channels' tracks [B, C, 4, N] -> f0 [B, N]: the best channel
+    per frame, then WORLD's contour fixing."""
     cand = torch.mean(tracks, dim=2)                          # [B, C, N]
     dev = torch.sqrt(torch.sum((tracks - cand[:, :, None, :]) ** 2, dim=2)
                      / 3.0)
     score = dev / torch.clamp(cand, min=1e-6)
-    bf = torch.tensor(bounds, dtype=torch.float32, device=x.device)[:, None]
+    bf = torch.tensor(bounds, dtype=torch.float32,
+                      device=tracks.device)[:, None]
     in_range = ((cand >= f0_floor) & (cand <= f0_ceil)
                 & (cand >= bf / 2.0) & (cand <= bf))
     score = torch.where(in_range, score, torch.inf)

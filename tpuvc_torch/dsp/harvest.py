@@ -30,11 +30,12 @@ the blocks for the carry.  They equal the flat recurrences
 (``tests/test_f0.py::test_blocked_contour_recurrences_match_flat_scans``).
 The extension passes stay serial by data dependence: one step per frame.
 
-The five stages carry ``torch.profiler.record_function`` ranges named as
-the JAX package's ``jax.named_scope``s: ``hv_band_bank`` (1),
+The five stages carry stage spans (``utils/profiling.span``) named as the
+JAX package's ``jax.named_scope``s: ``hv_band_bank`` (1),
 ``hv_event_tracks`` (2), ``hv_merge`` (the channel candidates and 3),
 ``hv_refine`` (4) and ``hv_contour`` (5), so a profile attributes its
-time per stage; outside a profile they cost one context manager each.
+time per stage; outside a profile each costs one query of whether a
+profiler records.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpuvc_torch.dsp import filters
 from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, HARVEST_BAND_GATE_HIGH,
@@ -68,6 +68,7 @@ from tpuvc_torch.dsp.dio import (_bank_tracks, _extend_scan,
                                  _fix_step_remove_short_runs)
 from tpuvc_torch.ops.framing import frame_signal
 from tpuvc_torch.ops.harmonics import refine_score
+from tpuvc_torch.utils.profiling import span
 
 _K = HARVEST_MAX_CANDIDATES
 _CONTOUR_BLOCK = 128      # frames per block of the blocked recurrences
@@ -333,15 +334,15 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
     y = y - torch.mean(y, dim=-1, keepdim=True)
 
     bfs = _boundary_f0s(f0_floor, f0_ceil)[::channel_decim]
-    with record_function("hv_band_bank"):
+    with span("hv_band_bank"):
         filtered = filters.bandpass_bank_fft(y, fs_d, bfs)  # [B, C, Td]
     n_ch = filtered.shape[1]
     n_1ms = (t * 1000) // fs + 1
-    with record_function("hv_event_tracks"):
+    with span("hv_event_tracks"):
         tracks = _bank_tracks(filtered.reshape(bsz * n_ch, -1), fs_d, n_1ms,
                               fs_d // 1000).reshape(bsz, n_ch, 4, n_1ms)
     del filtered
-    with record_function("hv_merge"):
+    with span("hv_merge"):
         cand, dev = _channel_candidates(
             tracks, torch.tensor(bfs, dtype=torch.float32, device=x.device),
             floor, ceil)
@@ -349,7 +350,7 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
         merged, _ = _merge_channels(cand, dev)              # [B, N, K]
 
     win = harvest_refine_window(fs, f0_floor)
-    with record_function("hv_refine"):
+    with span("hv_refine"):
         seg = frame_signal(x, fs // 1000, win, n_1ms).reshape(bsz * n_1ms,
                                                               win)
         f0_1 = torch.where(merged > 0.0, torch.clamp(merged, min=floor), 0.0)
@@ -359,7 +360,7 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
         refined = refined.reshape(bsz, n_1ms, _K)
         scores = scores.reshape(bsz, n_1ms, _K)
 
-    with record_function("hv_contour"):
+    with span("hv_contour"):
         best = torch.argmax(scores, dim=-1, keepdim=True)
         f0 = torch.gather(refined, -1, best)[..., 0]
         f0 = torch.where(torch.gather(scores, -1, best)[..., 0] > 0.0, f0,

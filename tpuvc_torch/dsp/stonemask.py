@@ -20,6 +20,7 @@ from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, STONEMASK_FFT_SIZE,
                                        STONEMASK_RELATIVE_LIMIT)
 from tpuvc_torch.ops.framing import frame_signal
 from tpuvc_torch.ops.harmonics import fold_floor, harmonic_dft
+from tpuvc_torch.utils.profiling import span
 
 _FFT_SIZE = STONEMASK_FFT_SIZE
 
@@ -50,10 +51,12 @@ def stonemask(x: torch.Tensor, f0: torch.Tensor,
     x = x.to(torch.float32)
     f0 = f0.to(torch.float32)
     bsz, n = f0.shape
-    raw_seg = frame_signal(x, hop, _FFT_SIZE, n).reshape(bsz * n, _FFT_SIZE)
-    flat = f0.reshape(-1)
-    refined = _refine_once(raw_seg, flat, fs)
-    refined = _refine_once(raw_seg, refined, fs).reshape(bsz, n)
-    rel = torch.abs(refined - f0) / torch.clamp(f0, min=1e-6)
-    good = (f0 > 0) & (rel <= STONEMASK_RELATIVE_LIMIT) & (refined > 0)
-    return torch.where(f0 > 0, torch.where(good, refined, f0), 0.0)
+    with span("stonemask"):
+        raw_seg = frame_signal(x, hop, _FFT_SIZE, n).reshape(bsz * n,
+                                                             _FFT_SIZE)
+        flat = f0.reshape(-1)
+        refined = _refine_once(raw_seg, flat, fs)
+        refined = _refine_once(raw_seg, refined, fs).reshape(bsz, n)
+        rel = torch.abs(refined - f0) / torch.clamp(f0, min=1e-6)
+        good = (f0 > 0) & (rel <= STONEMASK_RELATIVE_LIMIT) & (refined > 0)
+        return torch.where(f0 > 0, torch.where(good, refined, f0), 0.0)

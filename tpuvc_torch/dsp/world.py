@@ -24,6 +24,7 @@ from tpuvc_torch.dsp.harvest import harvest
 from tpuvc_torch.dsp.stonemask import stonemask
 from tpuvc_torch.dsp.synthesis import synthesis_noise, synthesize
 from tpuvc_torch.utils.device import resolve
+from tpuvc_torch.utils.profiling import span
 
 
 class WorldFeatures(NamedTuple):
@@ -38,19 +39,24 @@ def world_features(x: torch.Tensor,
     """The analysis of x [B, T] on x's device: f0 [B, N], sp and ap
     [B, N, fft_size//2 + 1]."""
     x = x.to(torch.float32)
-    if cfg.f0_method == "harvest":
-        f0 = harvest(x, fs=cfg.fs, hop=cfg.hop, f0_floor=cfg.f0_floor,
-                     f0_ceil=cfg.f0_ceil,
-                     channel_decim=cfg.harvest_channel_decim)
-    elif cfg.f0_method == "dio":
-        f0 = stonemask(x, dio(x, fs=cfg.fs, hop=cfg.hop,
-                              f0_floor=cfg.f0_floor, f0_ceil=cfg.f0_ceil),
-                       hop=cfg.hop, fs=cfg.fs)
-    else:
-        raise ValueError(f"unknown f0 method {cfg.f0_method!r}")
-    sp = cheaptrick(x, f0, hop=cfg.hop, fs=cfg.fs, fft_size=cfg.fft_size)
-    ap = d4c(x, f0, hop=cfg.hop, fs=cfg.fs, fft_size=cfg.fft_size,
-             method=cfg.ap_method)
+    with span("world.f0"):
+        if cfg.f0_method == "harvest":
+            f0 = harvest(x, fs=cfg.fs, hop=cfg.hop, f0_floor=cfg.f0_floor,
+                         f0_ceil=cfg.f0_ceil,
+                         channel_decim=cfg.harvest_channel_decim)
+        elif cfg.f0_method == "dio":
+            f0 = stonemask(x, dio(x, fs=cfg.fs, hop=cfg.hop,
+                                  f0_floor=cfg.f0_floor,
+                                  f0_ceil=cfg.f0_ceil),
+                           hop=cfg.hop, fs=cfg.fs)
+        else:
+            raise ValueError(f"unknown f0 method {cfg.f0_method!r}")
+    with span("world.sp"):
+        sp = cheaptrick(x, f0, hop=cfg.hop, fs=cfg.fs,
+                        fft_size=cfg.fft_size)
+    with span("world.ap"):
+        ap = d4c(x, f0, hop=cfg.hop, fs=cfg.fs, fft_size=cfg.fft_size,
+                 method=cfg.ap_method)
     return WorldFeatures(f0=f0, sp=sp, ap=ap)
 
 

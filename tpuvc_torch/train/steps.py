@@ -60,6 +60,7 @@ from tpuvc_torch.parallel.mesh import local_rows
 from tpuvc_torch.train.state import VAETrainState, VAWGANTrainState
 from tpuvc_torch.utils.config import Architecture
 from tpuvc_torch.utils.device import resolve
+from tpuvc_torch.utils.profiling import span
 
 
 def check_routes(arch: Architecture) -> None:
@@ -245,13 +246,15 @@ def vawgan_step(state: VAWGANTrainState, x_crit: torch.Tensor,
     ``group``, as ``vae_step``."""
     t = state.gen.arch.training
     for k in range(x_crit.shape[0]):
-        loss, d_aux = critic_loss(state.gen, state.critic, x_crit[k],
-                                  y_crit[k], noise.z_crit[k], noise.gp[k],
-                                  t.gp_lambda)
-        _update(state.opt_d, state.critic, loss, group)
-    loss, g_aux = generator_loss(state.gen, state.critic, x_gen, y_gen,
-                                 noise.z_gen, t.alpha)
-    _update(state.opt_g, state.gen, loss, group)
+        with span("train.critic"):
+            loss, d_aux = critic_loss(state.gen, state.critic, x_crit[k],
+                                      y_crit[k], noise.z_crit[k],
+                                      noise.gp[k], t.gp_lambda)
+            _update(state.opt_d, state.critic, loss, group)
+    with span("train.generator"):
+        loss, g_aux = generator_loss(state.gen, state.critic, x_gen, y_gen,
+                                     noise.z_gen, t.alpha)
+        _update(state.opt_g, state.gen, loss, group)
     state.step += 1
     return _detach({**d_aux, **g_aux})
 

@@ -19,6 +19,12 @@ batch, axis 1 of the critic's), the gradients averaged over the world
 writes checkpoints and metrics, and the logged metrics are the world's
 mean.  A local mesh of several devices is refused: training takes one
 process per card.
+
+Stage spans (``utils/profiling.span``) split a profile of a step:
+``train.input`` (the host batches and their copies to the device), the
+updates' ``train.critic`` and ``train.generator`` (``train/steps.py``),
+``train.log`` (the metrics and the spectrogram summaries) and
+``train.save`` (the checkpoint).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tpuvc_torch.train.checkpoint import Checkpointer
 from tpuvc_torch.train.summaries import MetricsWriter
 from tpuvc_torch.utils.config import Architecture
 from tpuvc_torch.utils.device import resolve
+from tpuvc_torch.utils.profiling import span
 
 
 def _table_fingerprint(a: np.ndarray) -> tuple:
@@ -159,7 +166,8 @@ class _BaseTrainer:
 
     def _save(self, step: int) -> None:
         if self.lead:
-            self.ckpt.save(step, self.state)
+            with span("train.save"):
+                self.ckpt.save(step, self.state)
 
     def _log_spectrograms(self, step: int, x, y) -> None:
         """Real vs reconstructed frames as images (reference util/image.py
@@ -234,11 +242,13 @@ class _BaseTrainer:
             step = self.state.step
             last = d + 1 == len(plan)
             if (d + 1) % log_every == 0 or last:
-                metrics = self._log(step, m)
+                with span("train.log"):
+                    metrics = self._log(step, m)
             if (d + 1) % save_every == 0 or last:
                 # the reference's one visual, at save boundaries only: a
                 # fixed slice of the table, one forward
-                self._log_spectrograms(step, data[:64], labels[:64])
+                with span("train.log"):
+                    self._log_spectrograms(step, data[:64], labels[:64])
                 self._save(step)
         self.ckpt.wait()
         return metrics
@@ -268,16 +278,18 @@ class VAETrainer(_BaseTrainer):
         start = self._resume(batches, batches_per_step=1)
         metrics = {}
         for step in range(start, total_steps):
-            xb, yb = next(batches)
-            x, y = self._to_device(xb, yb)
+            with span("train.input"):
+                xb, yb = next(batches)
+                x, y = self._to_device(xb, yb)
             g = steps_lib.step_generator(self.seed, step, self.device)
             eps = steps_lib.vae_noise(g, len(xb), self.arch)
             m = steps_lib.vae_step(self.state, x, y,
                                    eps[local_rows(self.mesh, len(xb))],
                                    self.group)
             if (step + 1) % log_every == 0 or step + 1 == total_steps:
-                metrics = self._log(step + 1, m)
-                self._log_spectrograms(step + 1, xb, yb)
+                with span("train.log"):
+                    metrics = self._log(step + 1, m)
+                    self._log_spectrograms(step + 1, xb, yb)
             if (step + 1) % save_every == 0 or step + 1 == total_steps:
                 self._save(step + 1)
         self.ckpt.wait()
@@ -311,10 +323,11 @@ class VAWGANTrainer(_BaseTrainer):
         start = self._resume(batches, batches_per_step=n_unroll + 1)
         metrics = {}
         for step in range(start, total_steps):
-            xs, ys = zip(*(next(batches) for _ in range(n_unroll + 1)))
-            x_crit, y_crit = self._to_device(np.stack(xs[:-1]),
-                                             np.stack(ys[:-1]), 1)
-            x_gen, y_gen = self._to_device(xs[-1], ys[-1])
+            with span("train.input"):
+                xs, ys = zip(*(next(batches) for _ in range(n_unroll + 1)))
+                x_crit, y_crit = self._to_device(np.stack(xs[:-1]),
+                                                 np.stack(ys[:-1]), 1)
+                x_gen, y_gen = self._to_device(xs[-1], ys[-1])
             g = steps_lib.step_generator(self.seed, step, self.device)
             b = len(xs[-1])
             noise = steps_lib.vawgan_noise(g, b, self.arch)
@@ -322,8 +335,9 @@ class VAWGANTrainer(_BaseTrainer):
                 self.state, x_crit, y_crit, x_gen, y_gen,
                 noise.rows(local_rows(self.mesh, b)), self.group)
             if (step + 1) % log_every == 0 or step + 1 == total_steps:
-                metrics = self._log(step + 1, m)
-                self._log_spectrograms(step + 1, xs[-1], ys[-1])
+                with span("train.log"):
+                    metrics = self._log(step + 1, m)
+                    self._log_spectrograms(step + 1, xs[-1], ys[-1])
             if (step + 1) % save_every == 0 or step + 1 == total_steps:
                 self._save(step + 1)
         self.ckpt.wait()

@@ -24,7 +24,9 @@ non-zero and prints no ``"ok"`` line):
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the nine CUDA kernels (tpuvc_torch/csrc) with nvcc
+  2. build   — compile the ten CUDA kernels (tpuvc_torch/csrc: the nine
+               of the JAX package's Pallas kernels and the contour
+               kernel, which replaces a jax.lax.scan) with nvcc
                into build/tpuvc_torch/ and the host-IO library
                (tpuvc_torch/native/io.cc) with g++ into
                build/tpuvc_torch_host/, both through
@@ -85,11 +87,12 @@ non-zero and prints no ``"ok"`` line):
                counters zeroed just before and read just after each call:
                tpuvc_torch.cli.convert --all_pairs --transfer-encoding
                ulaw8 (10 x 2 x 9 = 180 conversions in one batched call; the
-               DIO path's six kernels must launch; every file finite and
+               DIO path's seven kernels must launch; every file finite and
                not silent; wall time and audio s/s), a single pair with
                --f0-method harvest --harvest-decim 2 --save_spectrogram
-               (K1, K7, K6, K3, K4, K5 must launch; a PNG only where
-               matplotlib is installed), a single pair with --streaming;
+               (K1, K7, K6, the contour kernel, K3, K4, K5 must launch; a
+               PNG only where matplotlib is installed), a single pair with
+               --streaming;
                load_converter on the card and on the CPU from the same
                checkpoint (waveform SNR >= 30 dB, the same noise); and
                tpuvc_torch.cli.evaluate in its round-trip mode (MCD < 8 dB)
@@ -158,7 +161,8 @@ non-zero and prints no ``"ok"`` line):
                200 before it falls); the per-step critic A/B for 30 steps
                per arm.  Every number must be
                finite, every result's keys the JAX script's, and K1, K7,
-               K2, K3, K4 and K5 must have launched in each study.
+               the contour kernel, K2, K3, K4 and K5 must have launched in
+               each study.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -205,6 +209,8 @@ KERNELS = [
      "tpuvc/ops/pallas_conv.py:54", "fused"),
     ("d2s", "tpuvc_torch/csrc/d2s.cu",
      "tpuvc/ops/pallas_d2s.py:65", "fused"),
+    ("extend", "tpuvc_torch/csrc/contour.cu",
+     "none (a jax.lax.scan, tpuvc/dsp/dio.py:363)", "default"),
 ]
 # kernels whose record sums the sites of one model call (every layer)
 SUMMED = ("conv", "d2s")
@@ -214,10 +220,13 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "topk_sum_kernel", "refine_score_kernel",
                 "top2_block_scans_kernel", "conv_ln_lrelu_kernel",
                 "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
-                "split_tf32_kernel", "d2s_ln_lrelu_kernel")
+                "split_tf32_kernel", "d2s_ln_lrelu_kernel",
+                "extend_scans_kernel")
 
-DIO_KERNELS = ("events", "scan", "harmonics", "window", "smooth", "topk")
-HARVEST_KERNELS = ("events", "scan", "refine", "window", "smooth", "topk")
+DIO_KERNELS = ("events", "scan", "extend", "harmonics", "window", "smooth",
+               "topk")
+HARVEST_KERNELS = ("events", "scan", "refine", "extend", "window", "smooth",
+                   "topk")
 FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
 
 # path -> (WorldConfig fields, kernels it runs, rate batch, Architecture
@@ -228,7 +237,8 @@ PATHS = {
     "harvest_decim2": ({"f0_method": "harvest", "harvest_channel_decim": 2},
                        HARVEST_KERNELS, 32, {}),
     "nccf": ({"ap_method": "nccf"},
-             ("events", "scan", "harmonics", "window", "smooth"), 16, {}),
+             ("events", "scan", "extend", "harmonics", "window", "smooth"),
+             16, {}),
     "fused": ({}, DIO_KERNELS + ("conv", "d2s"), 128, FUSED_ARCH),
 }
 
@@ -416,7 +426,9 @@ def capture_inputs(dev, dur_s: float, batches: dict):
              (spectral, "box_smooth", "smooth"),
              (d4c, "topk_sum", "topk"),
              (harvest, "refine_score", "refine"),
-             (dio, "top2_block_scans", "scan")]
+             (dio, "top2_block_scans", "scan"),
+             (dio, "extend_scans", "extend"),
+             (harvest, "extend_scans", "extend")]
     rng = np.random.default_rng(2)
     out, sp = {}, None
     for path, batch in batches.items():
@@ -501,6 +513,7 @@ OPS_HARM_NO_IF = 91
 OPS_WINDOW_LANE = 16
 OPS_SCAN_PAIR = 3
 OPS_LN_VALUE = 8
+OPS_EXTEND_CAND = 4
 WINDOW_ONE_PASS_QUADS = 32 * 4     # csrc/window.cu: 32 lanes x kSlots
 
 
@@ -615,6 +628,18 @@ def bound_of(name: str, args, out) -> dict:
         x, c = args[0], args[1].shape[0]
         e = x.element_size()
         return _bound(e * (2 * x.numel() + 2 * c), OPS_LN_VALUE * x.numel())
+    if name == "extend":
+        # bound by the latency of the 2N steps each row walks one after
+        # another, which has no time of its own here; the bytes and
+        # operations (f0 and the candidates read once, the result written
+        # once; per candidate and step of both passes a subtraction, an
+        # absolute value, a division and a comparison) are a side key
+        b, n, c = args[1].shape
+        side = _bound(f4 * (2 * b * n + b * n * c),
+                      OPS_EXTEND_CAND * 2 * b * n * c)
+        return {"bound_ms": None, "bound_by": "latency (2N dependent steps)",
+                "dependent_steps": 2 * n,
+                "throughput_bound_ms": side["bound_ms"]}
     raise KeyError(name)
 
 
@@ -632,10 +657,10 @@ def compare(name: str, got, ref) -> tuple[float, str]:
     """Hold a kernel's outputs against its plain version's; returns the
     max abs error and the tolerance applied."""
     import torch
-    if name in ("events", "topk", "scan", "smooth"):
+    if name in ("events", "topk", "scan", "smooth", "extend"):
         # selections, and sums added in the same order (smooth: the same
-        # separately rounded products and sums, zero-weight taps skipped):
-        # bit-equal
+        # separately rounded products and sums, zero-weight taps skipped;
+        # extend: the same IEEE divisions and comparisons): bit-equal
         if not torch.equal(got, ref):
             raise AssertionError(f"{name}: kernel is not bit-equal to its "
                                  "plain version")
@@ -747,8 +772,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     utterances around TWO_PASS_F0, whose supports take its second pass."""
     import torch
     import torch.nn.functional as F
-    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
-                                 window)
+    from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
+                                 smooth, topk, window)
     batches = batches or {p: PATHS[p][2]
                           for p in ("default", "harvest", "harvest_decim2")}
     calls, sp = capture_inputs(dev, dur_s, batches)
@@ -767,7 +792,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
            "refine": (harmonics.refine_score, harmonics.refine_score_plain),
            "scan": (events.top2_block_scans, events.top2_block_scans_plain),
            "conv": (conv.conv_ln_lrelu, conv.conv_ln_lrelu_plain),
-           "d2s": (d2s.d2s_ln_lrelu, d2s.d2s_ln_lrelu_plain)}
+           "d2s": (d2s.d2s_ln_lrelu, d2s.d2s_ln_lrelu_plain),
+           "extend": (contour.extend_scans, contour.extend_scans_plain)}
     def default_layer(i):
         """Encoder layer i as the default architecture runs it (bf16
         compute: cuDNN conv, LayerNorm, LeakyReLU)."""
@@ -821,6 +847,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
           enumerate(m["conv"])],
         *[("d2s", f"decoder site {i + 1}", c) for i, c in
           enumerate(m["d2s"])],
+        ("extend", "DIO contour, both passes", d["extend"][0]),
+        ("extend", "Harvest contour, both passes", h["extend"][0]),
     ]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     res: dict = {}
@@ -848,13 +876,18 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
         say(f"[3 kernels] {name} ({label}): shapes {r['shape']} max_abs_err "
             f"{err:.3e} ({tol}); kernel {r['ms']:.4f} ms (back to back "
             f"{r['b2b_ms']:.4f} ms, mean of {B2B_REPS}), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}"
+            f"{r['plain_ms']:.4f} ms, bound "
+            + (f"{r['bound_ms']:.4f} ms " if r["bound_ms"] is not None
+               else "")
+            + f"({r['bound_by']}"
             + "".join(f"; {k} {r[k]:.4f}" for k in (
-                "bound_full_row_ms", "bound_all_lanes_ms", "fp32_ops_ms")
-                      if k in r)
+                "bound_full_row_ms", "bound_all_lanes_ms", "fp32_ops_ms",
+                "throughput_bound_ms") if k in r)
             + (f"; {r['two_pass_frames']} of {r['shape'][0][0]} frames "
-               "two-pass" if "two_pass_frames" in r else "") + "), library "
+               "two-pass" if "two_pass_frames" in r else "")
+            + (f"; {r['dependent_steps']} dependent steps, "
+               f"{1e6 * r['ms'] / r['dependent_steps']:.1f} ns each"
+               if "dependent_steps" in r else "") + "), library "
             + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
                else "none")
             + "".join(f"; {k} {r[k]:.4f}" for k in yardsticks.get(name, {})))
@@ -1104,16 +1137,6 @@ def phase_rate(path: str, conv, card: str, dev, batch: int,
         y = stage("synthesis", lambda: pipeline.synthesize(
             f0, sp_c, ap, noise))
         stage("ulaw8+d2h", lambda: conv._encode_transfer(y).cpu())
-        # the serial candidate-extension loops alone, at this path's grid
-        # (Harvest: 1 ms frames and 10 candidates; DIO: 5 ms and 7)
-        ne, nc = ((int(dur_s * 1000) + 1, 10) if cfg.f0_method == "harvest"
-                  else (n, 7))
-        cands = torch.rand((batch, ne, nc), device=dev) * 800.0
-        f0z = torch.where(torch.rand((batch, ne), device=dev) < 0.5, 0.0,
-                          200.0)
-        stage("extend_loops", lambda: dio._extend_scan(
-            dio._extend_scan(f0z, cands, 0.1).flip(-1), cands.flip(1),
-            0.1))
     say(f"[5 rate] {path}: stages (s): "
         + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     out = {"batch": batch, "audio_s_per_s": batch * dur_s / best,
@@ -1794,7 +1817,8 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
                                  "or non-finite")
         rels[name] = ((a - r).abs().max()
                       / r.abs().max().clamp(min=1e-12)).item()
-    per_shard("analyze_sharded", one, dp, DIO_KERNELS, ("events", "scan"))
+    per_shard("analyze_sharded", one, dp, DIO_KERNELS,
+              ("events", "scan", "extend"))
     rec["analyze_sharded"] = {"seconds": long_s, "wall_s": [wall_one,
                                                             wall_dp],
                               "launches": dp, "rel_err": rels}
@@ -2510,7 +2534,8 @@ def kernels_record(kern: dict, launches: dict) -> dict:
             entry.update({k: v for k, v in sites[0].items() if k in (
                 "max_abs_err", "ms", "b2b_ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_full_row_ms", "bound_all_lanes_ms",
-                "library_ms", "site")})
+                "dependent_steps", "throughput_bound_ms", "library_ms",
+                "site")})
         out.append(entry)
     return {"kernels": out}
 

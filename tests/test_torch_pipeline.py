@@ -411,7 +411,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     K7 and K6 sites in phase 3), the fused path's streaming and
     cli.analyze drives included (every wrapper takes its plain version, so
     nothing launches and the kernel/plain errors are exactly 0), and its
-    JSON record names all nine kernels with every key."""
+    JSON record names all ten kernels with every key."""
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
@@ -432,6 +432,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert len(kern["refine"]) == 2
     assert len(kern["scan"]) == 3 and len(kern["conv"]) == 5
     assert len(kern["d2s"]) == 3
+    # the contour kernel at DIO's 7 candidates and Harvest's 10, both
+    # passes: 2N dependent steps a row
+    assert [r["shape"][1][2] for r in kern["extend"]] == [7, 10]
+    assert all(r["dependent_steps"] == 2 * r["shape"][0][1]
+               for r in kern["extend"])
     assert kern["conv"][4]["bound_by"] == "operations"
     assert kern["d2s"][0]["bound_by"] == "bytes"
     launches = {}
@@ -454,6 +459,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "b2b_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
-    assert all(keys <= set(r) and r["bound_ms"] > 0 for r in record)
+    assert all(keys <= set(r) for r in record)
+    # the contour kernel is bound by its chain of dependent steps, which
+    # has no time of its own: its bytes and operations are a side key
+    for r in record:
+        if r["name"] == "extend":
+            assert r["bound_ms"] is None and r["throughput_bound_ms"] > 0
+            assert r["bound_by"] == "latency (2N dependent steps)"
+        else:
+            assert r["bound_ms"] > 0
     for r in record:
         assert os.path.exists(os.path.join(ROOT, r["source"]))

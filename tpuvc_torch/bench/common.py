@@ -20,8 +20,10 @@ from tpuvc_torch.utils.config import Architecture
 
 # the kernels each serving path launches (counter names of
 # ``ops._build.counters``)
-DIO_KERNELS = ("events", "scan", "harmonics", "window", "smooth", "topk")
-HARVEST_KERNELS = ("events", "scan", "refine", "window", "smooth", "topk")
+DIO_KERNELS = ("events", "scan", "extend", "harmonics", "window", "smooth",
+               "topk")
+HARVEST_KERNELS = ("events", "scan", "refine", "extend", "window", "smooth",
+                   "topk")
 
 
 def require_launches(kernels, device: torch.device, where: str) -> None:

@@ -13,13 +13,14 @@ the exact cummax identity of ``dio._top2_max_scan``, gives the same bits).
 The JAX package chooses between the two with ``TPUVC_SCAN``; the port
 needs no switch, as the kernel is the faster route on the card.  The frame
 reads are ``dio._tracks_from_pairs``.  The two candidate-guided extension
-passes are serial by data dependence and run as Python loops over frames,
-vectorised over the batch.
+passes, serial by data dependence, run in one launch of the contour kernel
+(``ops/contour.py:extend_scans``; its plain version, the loop over frames,
+on a CPU tensor).
 
 Two stage spans (``utils/profiling.span``) split a profile of ``dio``:
 ``dio_bank`` (decimation, the filter bank and the event tracks: K1 and K7)
 and ``dio_contour`` (the candidate pick, the fix steps and both extension
-passes, the host-launched loops).
+passes).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, DIO_ALLOWED_RANGE,
                                        DIO_SCORE_CUTOFF, DIO_TARGET_FS,
                                        DIO_VOICE_RANGE_MINIMUM)
 from tpuvc_torch.ops.arith import rdiv
+from tpuvc_torch.ops.contour import extend_scans
 from tpuvc_torch.ops.events import event_block_pairs, top2_block_scans
 from tpuvc_torch.utils.profiling import span
 
@@ -144,25 +146,6 @@ def _fix_step_remove_short_runs(f0: torch.Tensor, min_len: int
     return torch.where(keep, f0, 0.0)
 
 
-def _extend_scan(f0: torch.Tensor, cands: torch.Tensor,
-                 allowed: float) -> torch.Tensor:
-    """Extend voiced runs into unvoiced gaps with the nearest channel
-    candidate: f0 [B, N], cands [B, N, C].  Serial over frames."""
-    out = torch.empty_like(f0)
-    last = torch.zeros_like(f0[:, 0])
-    for i in range(f0.shape[1]):
-        f0_i, c_i = f0[:, i], cands[:, i]
-        err = torch.abs(c_i - last[:, None]) / torch.clamp(
-            last, min=1e-6)[:, None]
-        e_min, j = torch.min(err, dim=-1)
-        ok = (f0_i == 0) & (last > 0) & (e_min < allowed)
-        pick = torch.gather(c_i, 1, j[:, None])[:, 0]
-        last = torch.where(f0_i > 0, f0_i,
-                           torch.where(ok, pick, torch.zeros_like(pick)))
-        out[:, i] = last
-    return out
-
-
 def dio(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
         hop: int = DEFAULT_WORLD.hop,
         f0_floor: float = DEFAULT_WORLD.f0_floor,
@@ -212,6 +195,5 @@ def _contour(tracks: torch.Tensor, bounds: tuple[float, ...],
     cands_t = cand.transpose(1, 2)                            # [B, N, C]
     f0 = _fix_step_remove_jumps(f0, DIO_ALLOWED_RANGE)
     f0 = _fix_step_remove_short_runs(f0, DIO_VOICE_RANGE_MINIMUM)
-    f0 = _extend_scan(f0, cands_t, DIO_ALLOWED_RANGE)
-    f0 = _extend_scan(f0.flip(-1), cands_t.flip(1), DIO_ALLOWED_RANGE).flip(-1)
+    f0 = extend_scans(f0, cands_t, DIO_ALLOWED_RANGE)
     return _fix_step_remove_short_runs(f0, DIO_VOICE_RANGE_MINIMUM)

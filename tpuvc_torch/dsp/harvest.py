@@ -20,7 +20,8 @@ Interspeech 2017):
      numbers as its two-pass route);
   5. contour: the best-scoring candidate per frame, moving-median guided
      reselection, jump removal and short-run removal, candidate extension
-     (``dio._extend_scan``) both ways, and WORLD's zero-phase biquad
+     both ways (``ops/contour.py:extend_scans``, one launch of the contour
+     kernel on the card), and WORLD's zero-phase biquad
      smoothing; the 1 ms track is strided down to the output frames.
 
 The contour recurrences over the 1 ms grid (jump removal, forward fill,
@@ -28,7 +29,6 @@ biquad) run in the JAX package's blocked forms: a loop over the 128
 frames of a block, vectorised across all blocks, then a short loop over
 the blocks for the carry.  They equal the flat recurrences
 (``tests/test_f0.py::test_blocked_contour_recurrences_match_flat_scans``).
-The extension passes stay serial by data dependence: one step per frame.
 
 The five stages carry stage spans (``utils/profiling.span``) named as the
 JAX package's ``jax.named_scope``s: ``hv_band_bank`` (1),
@@ -64,8 +64,8 @@ from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, HARVEST_BAND_GATE_HIGH,
                                        HARVEST_TARGET_FS,
                                        HARVEST_VOICE_RANGE_MIN,
                                        harvest_refine_window)
-from tpuvc_torch.dsp.dio import (_bank_tracks, _extend_scan,
-                                 _fix_step_remove_short_runs)
+from tpuvc_torch.dsp.dio import _bank_tracks, _fix_step_remove_short_runs
+from tpuvc_torch.ops.contour import extend_scans
 from tpuvc_torch.ops.framing import frame_signal
 from tpuvc_torch.ops.harmonics import refine_score
 from tpuvc_torch.utils.profiling import span
@@ -368,9 +368,7 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
         f0 = _guided_reselect(f0, refined, scores)
         f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
         f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
-        f0 = _extend_scan(f0, refined, HARVEST_EXTENSION_ALLOWED)
-        f0 = _extend_scan(f0.flip(-1), refined.flip(1),
-                          HARVEST_EXTENSION_ALLOWED).flip(-1)
+        f0 = extend_scans(f0, refined, HARVEST_EXTENSION_ALLOWED)
         f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
         f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
         f0 = _smooth(f0)

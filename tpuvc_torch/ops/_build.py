@@ -8,8 +8,8 @@ sources, the flags and nvcc's version (an edit rebuilds; the two most
 recently used libraries stay), and loaded with ``ctypes``.  Nothing here
 runs at import time: the first kernel launch calls :func:`lib`.
 
-No ``--use_fast_math``: the event kernel must be bit-exact against its
-plain version, and the harmonic and window kernels rely on IEEE
+No ``--use_fast_math``: the event and contour kernels must be bit-exact
+against their plain versions, and the harmonic and window kernels rely on IEEE
 ``sinf``/``cosf`` and division to stay inside their tolerances.
 """
 
@@ -47,6 +47,7 @@ SIGNATURES = {
     "tpuvc_conv_ln_lrelu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _F, _P),
     "tpuvc_d2s_ln_lrelu": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    "tpuvc_extend_scans": (_P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -120,8 +121,8 @@ def count(module: str, counter: str) -> None:
 
 def counters() -> dict:
     """kernel name -> (wrapper module, attribute) of its launch counter."""
-    from tpuvc_torch.ops import (conv, d2s, events, harmonics, smooth, topk,
-                                 window)
+    from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
+                                 smooth, topk, window)
     return {"events": (events, "launches"),
             "harmonics": (harmonics, "launches"),
             "window": (window, "launches"),
@@ -130,7 +131,8 @@ def counters() -> dict:
             "refine": (harmonics, "launches_refine"),
             "scan": (events, "launches_scan"),
             "conv": (conv, "launches"),
-            "d2s": (d2s, "launches")}
+            "d2s": (d2s, "launches"),
+            "extend": (contour, "launches_extend")}
 
 
 def reset_counts() -> None:

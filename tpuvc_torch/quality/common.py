@@ -70,8 +70,9 @@ def start_launches(device: torch.device) -> None:
 
 
 def require_analysis_launches(device: torch.device, where: str) -> None:
-    """On the card, raise unless K1, K7, K2, K3, K4 and K5 launched since
-    ``start_launches`` (every study analyses audio on the DIO path)."""
+    """On the card, raise unless K1, K7, K2, K3, K4, K5 and the contour
+    kernel launched since ``start_launches`` (every study analyses audio
+    on the DIO path)."""
     sync(device)
     require_launches(DIO_KERNELS, device, where)
 

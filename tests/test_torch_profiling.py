@@ -17,7 +17,8 @@ from tpuvc_torch.utils import profiling
 # a conversion's stages: each inside its call's ``vc.convert_batch``, once
 # per chunk
 CHUNK_SPANS = ("vc.prep", "vc.upload", "vc.noise", "world.f0", "world.sp",
-               "world.ap", "vc.model", "vc.synth", "vc.fetch")
+               "world.ap", "vc.model", "vc.encode", "vc.decode", "vc.synth",
+               "vc.fetch")
 F0_SPANS = {"dio": ("dio_bank", "dio_contour", "stonemask"),
             "harvest": ("hv_band_bank", "hv_event_tracks", "hv_merge",
                         "hv_refine", "hv_contour")}
@@ -116,6 +117,8 @@ def test_a_conversion_leaves_its_stage_tree_once_per_chunk(f0_method):
     for name in F0_SPANS[f0_method]:
         assert len(r[name]) == 2, name
         assert _inside(r, name, "world.f0"), name
+    for name in ("vc.encode", "vc.decode"):
+        assert _inside(r, name, "vc.model"), name
     other = "harvest" if f0_method == "dio" else "dio"
     assert not set(F0_SPANS[other]) & set(r)
 

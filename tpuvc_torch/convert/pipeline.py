@@ -95,11 +95,13 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
         n = f0.shape[1]
         with span("vc.model"):
             u, en = _normalize_sp(sp, xmin, xmax)
-            z_mu, z_lv = model.encode(u.reshape(bsz * n, -1))
+            with span("vc.encode"):
+                z_mu, z_lv = model.encode(u.reshape(bsz * n, -1))
             z = (reparameterize(z_mu, z_lv, eps.reshape(z_mu.shape))
                  if sample_z else z_mu)
             y_vec = y_trgs.to(torch.int64).repeat_interleave(n)
-            u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
+            with span("vc.decode"):
+                u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
             sp_conv = _denormalize_sp(u_conv, en, xmin, xmax)
             f0_conv = convert_f0(f0, mu_srcs, sd_srcs, mu_trgs, sd_trgs)
         with span("vc.synth"):

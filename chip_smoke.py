@@ -24,18 +24,21 @@ non-zero and prints no ``"ok"`` line):
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the ten CUDA kernels (tpuvc_torch/csrc: the nine
-               of the JAX package's Pallas kernels and the contour
-               kernel, which replaces a jax.lax.scan) with nvcc
+  2. build   — compile the eleven CUDA kernels (tpuvc_torch/csrc: the
+               nine of the JAX package's Pallas kernels, the contour
+               kernel, which replaces a jax.lax.scan, and the model's
+               LayerNorm + LeakyReLU, K11, which XLA fuses) with nvcc
                into build/tpuvc_torch/ and the host-IO library
                (tpuvc_torch/native/io.cc) with g++ into
                build/tpuvc_torch_host/, both through
                tpuvc_torch/utils/aot_cache.py, and load them.
   3. kernels — one analysis per f0 path (default, harvest,
                harvest_decim2) on the card at the rate phase's
-               shapes and one fused model call on the
-               default batch's envelopes record every kernel wrapper's
-               real inputs, and one more default analysis of 16 x 4 s
+               shapes and one fused and one default model call on the
+               default batch's envelopes (the default call's ten
+               LayerNorm + LeakyReLU sites for K11) record every kernel
+               wrapper's real inputs, and one more default analysis of
+               16 x 4 s
                around 80 Hz the windowing's (supports that take K3's
                second pass); each kernel then runs on them against its
                plain PyTorch version (error, median ms of single calls of
@@ -48,9 +51,9 @@ non-zero and prints no ``"ok"`` line):
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
-               kernel of the path must have launched.  For every path
-               but nccf a 1 s input is also converted on the
-               card and on the CPU (plain versions, float32 model):
+               kernel of the path, K11 included, must have launched.
+               For every path but nccf a 1 s input is also converted on
+               the card and on the CPU (plain versions, float32 model):
                waveform SNR >= 30 dB.  The fused path then drives the two
                other entry points, counters zeroed and read around each:
                a streamed request through
@@ -87,12 +90,12 @@ non-zero and prints no ``"ok"`` line):
                counters zeroed just before and read just after each call:
                tpuvc_torch.cli.convert --all_pairs --transfer-encoding
                ulaw8 (10 x 2 x 9 = 180 conversions in one batched call; the
-               DIO path's seven kernels must launch; every file finite and
-               not silent; wall time and audio s/s), a single pair with
-               --f0-method harvest --harvest-decim 2 --save_spectrogram
-               (K1, K7, K6, the contour kernel, K3, K4, K5 must launch; a
-               PNG only where matplotlib is installed), a single pair with
-               --streaming;
+               DIO path's seven kernels and K11 must launch; every file
+               finite and not silent; wall time and audio s/s), a single
+               pair with --f0-method harvest --harvest-decim 2
+               --save_spectrogram (K1, K7, K6, the contour kernel, K3, K4,
+               K5, K11 must launch; a PNG only where matplotlib is
+               installed), a single pair with --streaming (K11 too);
                load_converter on the card and on the CPU from the same
                checkpoint (waveform SNR >= 30 dB, the same noise); and
                tpuvc_torch.cli.evaluate in its round-trip mode (MCD < 8 dB)
@@ -211,9 +214,11 @@ KERNELS = [
      "tpuvc/ops/pallas_d2s.py:65", "fused"),
     ("extend", "tpuvc_torch/csrc/contour.cu",
      "none (a jax.lax.scan, tpuvc/dsp/dio.py:363)", "default"),
+    ("norm", "tpuvc_torch/csrc/norm.cu",
+     "none (XLA fuses flax.linen.LayerNorm and leaky_relu)", "default"),
 ]
 # kernels whose record sums the sites of one model call (every layer)
-SUMMED = ("conv", "d2s")
+SUMMED = ("conv", "d2s", "norm")
 # the CUDA functions of tpuvc_torch/csrc, as the profiler names them
 KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "windowed_frames_kernel", "box_smooth_kernel",
@@ -221,25 +226,31 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "top2_block_scans_kernel", "conv_ln_lrelu_kernel",
                 "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
                 "split_tf32_kernel", "d2s_ln_lrelu_kernel",
-                "extend_scans_kernel")
+                "extend_scans_kernel", "norm_lrelu_rows_kernel",
+                "norm_lrelu_slab_kernel", "norm_lrelu_any_kernel")
 
 DIO_KERNELS = ("events", "scan", "extend", "harmonics", "window", "smooth",
                "topk")
 HARVEST_KERNELS = ("events", "scan", "refine", "extend", "window", "smooth",
                    "topk")
+# the model's own kernel on every route: K11, the LayerNorm + LeakyReLU
+# pairs outside K8 and K9
+MODEL_KERNELS = ("norm",)
 FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
 
 # path -> (WorldConfig fields, kernels it runs, rate batch, Architecture
 # fields)
 PATHS = {
-    "default": ({}, DIO_KERNELS, 128, {}),
-    "harvest": ({"f0_method": "harvest"}, HARVEST_KERNELS, 32, {}),
+    "default": ({}, DIO_KERNELS + MODEL_KERNELS, 128, {}),
+    "harvest": ({"f0_method": "harvest"}, HARVEST_KERNELS + MODEL_KERNELS,
+                32, {}),
     "harvest_decim2": ({"f0_method": "harvest", "harvest_channel_decim": 2},
-                       HARVEST_KERNELS, 32, {}),
+                       HARVEST_KERNELS + MODEL_KERNELS, 32, {}),
     "nccf": ({"ap_method": "nccf"},
-             ("events", "scan", "extend", "harmonics", "window", "smooth"),
-             16, {}),
-    "fused": ({}, DIO_KERNELS + ("conv", "d2s"), 128, FUSED_ARCH),
+             ("events", "scan", "extend", "harmonics", "window", "smooth")
+             + MODEL_KERNELS, 16, {}),
+    "fused": ({}, DIO_KERNELS + ("conv", "d2s") + MODEL_KERNELS, 128,
+              FUSED_ARCH),
 }
 
 
@@ -463,26 +474,49 @@ def capture_two_pass(dev, dur_s: float, batch: int):
     return calls[0]
 
 
-def capture_model_inputs(state, sp, dev) -> dict:
-    """kernel -> [(args, kwargs)] of the fused layers' wrapper calls in one
-    encode + decode of the fused model (bf16 compute) on the frames of
-    ``sp`` [B, N, 513], Tanhize-normalised by their own min/max."""
+def model_frames(sp):
+    """The frames of ``sp`` [B, N, 513], Tanhize-normalised by their own
+    min/max, [B * N, 513], and a speaker for each."""
     import torch
     from tpuvc_torch.convert import pipeline
-    from tpuvc_torch.models import vae
-    model = path_model("fused", state, dev)
     b, n, half = sp.shape
     s = sp + pipeline.EPSILON
     log = torch.log10(s / s.sum(-1, keepdim=True)).reshape(b * n, half)
     u, _ = pipeline._normalize_sp(sp.reshape(b * n, half), log.amin(0),
                                   log.amax(0))
-    del log, s
+    return u, torch.arange(b * n, device=sp.device) % len(SPEAKERS)
+
+
+def capture_model_inputs(state, sp, dev) -> dict:
+    """kernel -> [(args, kwargs)] of the fused layers' wrapper calls in one
+    encode + decode of the fused model (bf16 compute) on the frames of
+    ``sp`` (``model_frames``)."""
+    import torch
+    from tpuvc_torch.models import vae
+    model = path_model("fused", state, dev)
+    u, y = model_frames(sp)
     calls = {"conv": [], "d2s": []}
     with torch.no_grad(), spy(vae, "conv_ln_lrelu", calls["conv"]), \
             spy(vae, "d2s_ln_lrelu", calls["d2s"]):
         z, _ = model.encode(u)
-        model.decode(z, torch.arange(b * n, device=dev) % len(SPEAKERS))
+        model.decode(z, y)
     return calls
+
+
+def capture_norm_inputs(state, sp, dev) -> list:
+    """[(args, kwargs)] of K11's sites, NORM_SITES: the LayerNorm.lrelu
+    calls of one encode + decode of the default model (bf16 compute) on
+    the frames of ``sp``, each h as the model gives it (a convolution's
+    transposed output where it is one)."""
+    import torch
+    from tpuvc_torch.models import vae
+    model = path_model("default", state, dev)
+    u, y = model_frames(sp)
+    calls = []
+    with torch.no_grad(), spy(vae.LayerNorm, "lrelu", calls):
+        model.decode(model.encode(u)[0], y)
+    return [((h, ln.weight, ln.bias, slope), {})
+            for (ln, h, slope), _ in calls]
 
 
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> dict:
@@ -628,6 +662,12 @@ def bound_of(name: str, args, out) -> dict:
         x, c = args[0], args[1].shape[0]
         e = x.element_size()
         return _bound(e * (2 * x.numel() + 2 * c), OPS_LN_VALUE * x.numel())
+    if name == "norm":
+        # one read and one write of the activations (4 B a value in
+        # bfloat16), gamma and beta in float32
+        x, c = args[0], args[1].shape[0]
+        return _bound(2 * x.element_size() * x.numel() + f4 * 2 * c,
+                      OPS_LN_VALUE * x.numel())
     if name == "extend":
         # bound by the latency of the 2N steps each row walks one after
         # another, which has no time of its own here; the bytes and
@@ -681,7 +721,7 @@ def compare(name: str, got, ref) -> tuple[float, str]:
         # float32 sums of up to K*Cin products in another order, scaled by
         # the row's 1/std in the norm (TF32 off for the plain version)
         return _close(name, got, ref, 1e-4, 1e-4), "rtol 1e-4, atol 1e-4"
-    if name == "d2s":
+    if name in ("d2s", "norm"):
         # float32 math agreeing to rounding, then one bfloat16 rounding:
         # at most one bfloat16 step (2^-7 of the value) apart
         return (_close(name, got.float(), ref.float(), 8e-3, 1e-5),
@@ -751,6 +791,20 @@ def conv1d_f32(tf32: bool):
     return make
 
 
+def ln_chain(h, gamma, beta, slope):
+    """F.layer_norm and F.leaky_relu in h's dtype: what the model ran at a
+    K11 site before K11 (F.layer_norm copies a transposed h first)."""
+    import torch.nn.functional as F
+    from tpuvc_torch.ops.conv import LN_EPS
+    return F.leaky_relu(F.layer_norm(h, h.shape[-1:], gamma.to(h.dtype),
+                                     beta.to(h.dtype), LN_EPS), slope)
+
+
+# K11's sites in one default model call, in the order the model runs them
+NORM_SITES = (*[f"encoder layer {i + 1}" for i in range(5)], "dense_norm",
+              *[f"decoder step {i + 1}" for i in range(4)])
+
+
 def d2s_chain(x, gamma, beta, s, slope):
     """Depth-to-space, then F.layer_norm and F.leaky_relu in x's dtype:
     what the default decoder runs at a subpixel site."""
@@ -773,14 +827,13 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     import torch
     import torch.nn.functional as F
     from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
-                                 smooth, topk, window)
+                                 norm, smooth, topk, window)
     batches = batches or {p: PATHS[p][2]
                           for p in ("default", "harvest", "harvest_decim2")}
     calls, sp = capture_inputs(dev, dur_s, batches)
     d, h, h2 = (calls[p] for p in ("default", "harvest", "harvest_decim2"))
     two_pass = capture_two_pass(dev, dur_s, two_pass_batch)
     m = capture_model_inputs(state, sp, dev)
-    del sp
     default = path_model("default", state, dev).encoder.stack
     fns = {"events": (events.event_block_pairs,
                       events.event_block_pairs_plain),
@@ -793,7 +846,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
            "scan": (events.top2_block_scans, events.top2_block_scans_plain),
            "conv": (conv.conv_ln_lrelu, conv.conv_ln_lrelu_plain),
            "d2s": (d2s.d2s_ln_lrelu, d2s.d2s_ln_lrelu_plain),
-           "extend": (contour.extend_scans, contour.extend_scans_plain)}
+           "extend": (contour.extend_scans, contour.extend_scans_plain),
+           "norm": (norm.norm_lrelu, norm.norm_lrelu_plain)}
     def default_layer(i):
         """Encoder layer i as the default architecture runs it (bf16
         compute: cuDNN conv, LayerNorm, LeakyReLU)."""
@@ -810,6 +864,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
 
     library = {"topk": call(lambda ps, kk: torch.topk(ps, kk).values.sum(-1)),
                "scan": call(ladder_route), "d2s": call(d2s_chain),
+               "norm": call(ln_chain),
                "smooth": smooth_conv1d,
                **{f"conv{i}": call(default_layer(i)) for i in range(5)}}
     library_label = {
@@ -822,7 +877,9 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
         "conv": "chain cuDNN conv1d + LayerNorm + LeakyReLU in bfloat16 "
                 "(the default encoder's layer)",
         "d2s": "chain view + F.layer_norm + F.leaky_relu in bfloat16 (the "
-               "default decoder's)"}
+               "default decoder's)",
+        "norm": "chain F.layer_norm + F.leaky_relu in the site's dtype (the "
+                "model's two calls before K11)"}
     # further one-call yardsticks, each timed beside library_ms
     yardsticks = {"conv": {"library_f32_ms": conv1d_f32(False),
                            "library_tf32_ms": conv1d_f32(True)}}
@@ -852,7 +909,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     ]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     res: dict = {}
-    for name, label, (args, kwargs), *key in sites:
+
+    def measure(name, label, args, kwargs, *key):
         kern, plain = fns[name]
         got = kern(*args, **kwargs)
         ref = plain(*args, **kwargs)
@@ -891,7 +949,17 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
             + (f"{r['library_ms']:.4f} ms ({r['library']})" if lib
                else "none")
             + "".join(f"; {k} {r[k]:.4f}" for k in yardsticks.get(name, {})))
-    del calls, d, h, h2, m, default, two_pass
+    for name, label, (args, kwargs), *key in sites:
+        measure(name, label, args, kwargs, *key)
+    del sites, calls, d, h, h2, m, default, two_pass
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # K11's sites last, with the other captures freed: the default model's
+    # ten LayerNorm inputs at the default batch hold ~11 GB in bf16
+    for label, (args, kwargs) in zip(NORM_SITES,
+                                     capture_norm_inputs(state, sp, dev)):
+        measure("norm", label, args, kwargs)
+    del sp, args, kwargs
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return res
@@ -1551,7 +1619,8 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
     outs, wall, launches = drive(
         "all_pairs", cli_convert.main,
         common + ["--all_pairs", "--transfer-encoding", "ulaw8", "--output",
-                  os.path.join(out, "all_pairs")], DIO_KERNELS)
+                  os.path.join(out, "all_pairs")],
+        DIO_KERNELS + MODEL_KERNELS)
     want = len(speakers) * n_test * (len(speakers) - 1)
     if len(outs) != want:
         raise AssertionError(f"all pairs: {len(outs)} files for {want}")
@@ -1573,7 +1642,7 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
         "harvest_decim2", cli_convert.main,
         common + ["--src", src, "--trg", trg, "--f0-method", "harvest",
                   "--harvest-decim", "2", "--save_spectrogram", "--output",
-                  out_h], HARVEST_KERNELS)
+                  out_h], HARVEST_KERNELS + MODEL_KERNELS)
     check_wavs("harvest decim 2", outs)
     pngs = [f for f in os.listdir(out_h) if f.endswith(".png")]
     has_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -1590,7 +1659,8 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
     outs, wall, launches = drive(
         "streaming", cli_convert.main,
         common + ["--src", src, "--trg", trg, "--streaming", "--output",
-                  os.path.join(out, "streaming")], DIO_KERNELS)
+                  os.path.join(out, "streaming")],
+        DIO_KERNELS + MODEL_KERNELS)
     check_wavs("streaming", outs)
     say(f"[7 convert] cli.convert {src}->{trg} --streaming: {len(outs)} "
         f"files in {wall:.3f} s; kernel launches {launches}")

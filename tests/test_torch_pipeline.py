@@ -411,8 +411,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     K7 and K6 sites in phase 3), the fused path's streaming and
     cli.analyze drives included (every wrapper takes its plain version, so
     nothing launches and the kernel/plain errors are exactly 0), and its
-    JSON record names all ten kernels with every key."""
+    JSON record names all eleven kernels with every key."""
     import chip_smoke
+    from tpuvc_torch.ops._build import counters
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
     state = chip_smoke.build_state()
@@ -439,15 +440,26 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                for r in kern["extend"])
     assert kern["conv"][4]["bound_by"] == "operations"
     assert kern["d2s"][0]["bound_by"] == "bytes"
+    # K11 at the default model's ten sites: the encoder's five (a
+    # convolution's transposed output each), the dense_norm and the
+    # decoder's four steps, every one bound by its bytes
+    assert [r["site"] for r in kern["norm"]] == list(chip_smoke.NORM_SITES)
+    assert [r["shape"][0][-1] for r in kern["norm"]] == [
+        16, 32, 64, 128, 256, 2432, 128, 64, 32, 16]
+    assert all(r["bound_by"] == "bytes" and r["library_ms"] is not None
+               for r in kern["norm"])
+    for path, (_, kernels, _, _) in chip_smoke.PATHS.items():
+        assert "norm" in kernels, path
     launches = {}
     for path in chip_smoke.PATHS:
         conv, launches[path], snr = chip_smoke.phase_serve(
             path, cpu, state, durs=(0.6, 1.1))
-        assert launches[path] == dict.fromkeys(kern, 0)
+        # nothing launches on the CPU, the model's K11 included
+        assert launches[path] == dict.fromkeys(counters(), 0)
         assert (snr is None) == (path == "nccf")
         if path == "fused":
             entry = chip_smoke.phase_entry_points(conv, cpu)
-            assert entry["analyze_launches"] == dict.fromkeys(kern, 0)
+            assert entry["analyze_launches"] == dict.fromkeys(counters(), 0)
         rate = chip_smoke.phase_rate(
             path, conv, "cpu", cpu, batch=2, dur_s=0.5,
             budget_batch=3 if path == "harvest" else None)

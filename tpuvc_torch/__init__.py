@@ -3,12 +3,13 @@
 A second package beside the JAX reference ``tpuvc``.  It keeps the old
 sub-package names so each module's counterpart is easy to find:
 
-  ops/      framing, Fourier transforms, OLA, transfer codecs, and the nine
+  ops/      framing, Fourier transforms, OLA, transfer codecs, and the
             hand-written CUDA kernels (events with the fused block scans,
             harmonics with refine_score, window, smooth, topk, the fused
             conv + LayerNorm + LeakyReLU and depth-to-space + LayerNorm +
-            LeakyReLU layers) with their plain PyTorch versions; csrc/
-            holds the sources
+            LeakyReLU layers, the contour's extension passes, the model's
+            other LayerNorm + LeakyReLU pairs) with their plain PyTorch
+            versions; csrc/ holds the sources
   dsp/      the WORLD analysis (DIO, StoneMask, Harvest, CheapTrick, D4C)
             and synthesis, with ``dsp/world.py`` as its entry point, and the
             port's copy of the DSP constants

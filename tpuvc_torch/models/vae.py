@@ -21,6 +21,15 @@ state dict is the same for both):
   the JAX branch; the dense heads then cast back to the compute type.
 - ``d2s_impl="pallas"``: after each stride-s decoder conv but the last,
   depth-to-space + LayerNorm + LeakyReLU run fused (``ops/d2s.py``).
+
+Every other LayerNorm + LeakyReLU pair is ``LayerNorm.lrelu``: one launch
+of K11 (``ops/norm.py``) wherever the activations lie on the card and no
+gradient needs the graph, at any width, else ``F.layer_norm`` and
+``F.leaky_relu``: on the CPU and in passes that need a backward.  One
+exception is training's: a module in train mode keeps the two calls in its
+no-grad passes too (the critic updates' generator forward), so that they
+round as its backward-capable ones do.  ``load_model`` gives a model in
+eval mode for serving.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.models import losses
+from tpuvc_torch.ops import norm as norm_op
 from tpuvc_torch.ops.conv import LN_EPS, conv_ln_lrelu, same_pad
 from tpuvc_torch.ops.d2s import d2s_ln_lrelu
 from tpuvc_torch.utils.config import Architecture, NetSpec
@@ -73,6 +83,15 @@ class LayerNorm(nn.Module):
         return F.layer_norm(h, h.shape[-1:], self.weight.to(h.dtype),
                             self.bias.to(h.dtype), LN_EPS)
 
+    def lrelu(self, h: torch.Tensor, slope: float) -> torch.Tensor:
+        """LeakyReLU of the norm of h, contiguous: K11 where
+        ``norm_op.engages``, else the two PyTorch calls (on the CPU and in
+        passes whose gradient needs the graph); in train mode, the
+        training exception, always the two calls."""
+        if not self.training and norm_op.engages(h, self.weight, self.bias):
+            return norm_op.norm_lrelu(h, self.weight, self.bias, slope)
+        return F.leaky_relu(self(h), slope)
+
 
 class Dense(nn.Module):
     def __init__(self, cin: int, cout: int):
@@ -107,7 +126,7 @@ class ConvStack(nn.Module):
                                   norm.weight, norm.bias, conv.stride,
                                   self.slope)
             else:
-                h = F.leaky_relu(norm(conv(h)), self.slope)
+                h = norm.lrelu(conv(h), self.slope)
         return h
 
 
@@ -170,7 +189,7 @@ class Decoder(nn.Module):
                 dtype: torch.dtype) -> torch.Tensor:
         emb = self.embed.to(dtype)[y]
         h = torch.cat([z.to(dtype), emb], dim=-1)
-        h = F.leaky_relu(self.dense_norm(self.dense(h)), self.slope)
+        h = self.dense_norm.lrelu(self.dense(h), self.slope)
         h = h.reshape(h.shape[0], self.base_len, -1)
         last = len(self.convs) - 1
         for i, (conv, s) in enumerate(zip(self.convs, self.strides)):
@@ -183,7 +202,7 @@ class Decoder(nn.Module):
             if s > 1:   # depth-to-space, channels-last: [B, L, c*s] -> [B, L*s, c]
                 h = h.reshape(h.shape[0], h.shape[1] * s, -1)
             if i < last:
-                h = F.leaky_relu(self.norms[i](h), self.slope)
+                h = self.norms[i].lrelu(h, self.slope)
         out = h.squeeze(-1)
         if self.tanh:
             out = torch.tanh(out)

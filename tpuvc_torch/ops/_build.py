@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -48,6 +49,7 @@ SIGNATURES = {
                             _I, _F, _F, _P),
     "tpuvc_d2s_ln_lrelu": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     "tpuvc_extend_scans": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "tpuvc_norm_lrelu": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -122,7 +124,7 @@ def count(module: str, counter: str) -> None:
 def counters() -> dict:
     """kernel name -> (wrapper module, attribute) of its launch counter."""
     from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
-                                 smooth, topk, window)
+                                 norm, smooth, topk, window)
     return {"events": (events, "launches"),
             "harmonics": (harmonics, "launches"),
             "window": (window, "launches"),
@@ -132,7 +134,8 @@ def counters() -> dict:
             "scan": (events, "launches_scan"),
             "conv": (conv, "launches"),
             "d2s": (d2s, "launches"),
-            "extend": (contour, "launches_extend")}
+            "extend": (contour, "launches_extend"),
+            "norm": (norm, "launches")}
 
 
 def reset_counts() -> None:

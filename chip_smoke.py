@@ -52,6 +52,10 @@ non-zero and prints no ``"ok"`` line):
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
                kernel of the path, K11 included, must have launched.
+               The default path serves the same requests again with
+               float32 and pcm12 transfer: decoded on the host, ulaw8
+               and pcm12 against float32 clipped to [-1, 1] hold SNR
+               >= 30 and >= 50 dB.
                For every path but nccf a 1 s input is also converted on
                the card and on the CPU (plain versions, float32 model):
                waveform SNR >= 30 dB.  The fused path then drives the two
@@ -133,19 +137,16 @@ non-zero and prints no ``"ok"`` line):
                hand kernel launched).  Host times of the card's machine
                (informational): ms per WAV native vs scipy, ms per
                256-row gather native vs numpy, grain_batches batches/s.
-  9. bench   — the port's measurement entry points (tpuvc_torch.bench)
-               at reduced repetitions, counters zeroed just before and
-               read just after each, each printing its JSON line:
-               bench_torch.py's measurement in "both" mode at 128 x 4 s
-               (k 2, 3 repetitions; ulaw8 SNR >= 30 dB, pcm12 >= 50 dB),
-               the Harvest bench at 32 x 4 s, the streaming bench (a 0.5 s
-               single-stream sweep over 4 s, 16 paced streams of 0.5 s for
-               20 ticks), compute-only at K 4 with d2s_impl xla and pallas
-               (K9), and the stage ablation at 32 x 4 s.  Each JSON's keys
-               must equal the JAX script's, and each path's kernels must
-               have launched.  Then one default call of 128 x 4 s under
-               torch.cuda.set_sync_debug_mode("warn"): the host syncs
-               hidden in it, counted by the port's line that caused them.
+  9. bench   — the port's two microbenchmarks (tpuvc_torch.bench) at
+               reduced repetitions, counters zeroed just before and read
+               just after each, each printing its JSON line: compute-only
+               at K 4 with d2s_impl xla and pallas (K9), and the stage
+               ablation at 32 x 4 s.  Each JSON's keys must equal the JAX
+               script's, and each one's kernels must have launched
+               (compute-only's include the model's).  Then one default
+               call of 128 x 4 s under torch.cuda.set_sync_debug_mode(
+               "warn"): the host syncs hidden in it, counted by the port's
+               line that caused them.
  10. quality — the quality studies (tpuvc_torch.quality) once each through
                their ``main`` on the card at a reduced size, cuDNN's TF32
                on as in ``cli.train``, counters zeroed just before and read
@@ -229,28 +230,15 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "extend_scans_kernel", "norm_lrelu_rows_kernel",
                 "norm_lrelu_slab_kernel", "norm_lrelu_any_kernel")
 
-DIO_KERNELS = ("events", "scan", "extend", "harmonics", "window", "smooth",
-               "topk")
-HARVEST_KERNELS = ("events", "scan", "refine", "extend", "window", "smooth",
-                   "topk")
-# the model's own kernel on every route: K11, the LayerNorm + LeakyReLU
-# pairs outside K8 and K9
-MODEL_KERNELS = ("norm",)
-FUSED_ARCH = {"conv_impl": "pallas", "d2s_impl": "pallas"}
-
-# path -> (WorldConfig fields, kernels it runs, rate batch, Architecture
-# fields)
+# path -> (WorldConfig fields, rate batch, Architecture fields); the kernels
+# each path launches follow from its fields (``path_kernels``)
 PATHS = {
-    "default": ({}, DIO_KERNELS + MODEL_KERNELS, 128, {}),
-    "harvest": ({"f0_method": "harvest"}, HARVEST_KERNELS + MODEL_KERNELS,
-                32, {}),
+    "default": ({}, 128, {}),
+    "harvest": ({"f0_method": "harvest"}, 32, {}),
     "harvest_decim2": ({"f0_method": "harvest", "harvest_channel_decim": 2},
-                       HARVEST_KERNELS + MODEL_KERNELS, 32, {}),
-    "nccf": ({"ap_method": "nccf"},
-             ("events", "scan", "extend", "harmonics", "window", "smooth")
-             + MODEL_KERNELS, 16, {}),
-    "fused": ({}, DIO_KERNELS + ("conv", "d2s") + MODEL_KERNELS, 128,
-              FUSED_ARCH),
+                       32, {}),
+    "nccf": ({"ap_method": "nccf"}, 16, {}),
+    "fused": ({}, 128, {"conv_impl": "pallas", "d2s_impl": "pallas"}),
 }
 
 
@@ -263,13 +251,32 @@ def path_cfg(path: str):
     return WorldConfig(**PATHS[path][0])
 
 
+def path_arch(path: str, compute_dtype: str = "bfloat16"):
+    from tpuvc_torch.utils.config import Architecture
+    return Architecture(compute_dtype=compute_dtype, **PATHS[path][2])
+
+
 def path_model(path: str, state, dev, compute_dtype: str = "bfloat16"):
     """The full-width VAW-GAN of the path's architecture holding ``state``
     on ``dev``."""
     from tpuvc_torch.models.params import load_model
-    from tpuvc_torch.utils.config import Architecture
-    return load_model(Architecture(compute_dtype=compute_dtype,
-                                   **PATHS[path][3]), state, dev)
+    return load_model(path_arch(path, compute_dtype), state, dev)
+
+
+def path_kernels(path: str, model: bool = True) -> tuple:
+    """The kernels (``ops._build.KERNEL_NAMES``) a call on ``path`` must
+    launch: its analysis's, then, with ``model``, its model's."""
+    from tpuvc_torch.dsp.world import analysis_kernels
+    from tpuvc_torch.models.vae import serving_kernels
+    return analysis_kernels(path_cfg(path)) + (
+        serving_kernels(path_arch(path)) if model else ())
+
+
+def unlaunched(launches: dict, path: str = "default",
+               model: bool = True) -> list:
+    """The kernels of ``path_kernels(path, model)`` with no launch in
+    ``launches`` (a ``read_counts()`` record)."""
+    return [k for k in path_kernels(path, model) if launches[k] == 0]
 
 
 def phase_device():
@@ -828,7 +835,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     import torch.nn.functional as F
     from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
                                  norm, smooth, topk, window)
-    batches = batches or {p: PATHS[p][2]
+    batches = batches or {p: PATHS[p][1]
                           for p in ("default", "harvest", "harvest_decim2")}
     calls, sp = capture_inputs(dev, dur_s, batches)
     d, h, h2 = (calls[p] for p in ("default", "harvest", "harvest_decim2"))
@@ -981,7 +988,10 @@ def phase_serve(path: str, dev, state,
                 durs=(1.0, 1.7, 2.3, 3.1, 3.6, 4.0)):
     """Requests of ``durs`` seconds through the path's Converter (its
     architecture in bf16 compute) with the launch counters zeroed just
-    before and read just after; then card vs CPU."""
+    before and read just after; on the default path the same requests
+    through float32 and pcm12 transfer; then card vs CPU.  Returns
+    (converter, launches, card-vs-CPU SNR, transfer SNRs), the SNRs None
+    where the path skips them."""
     import torch
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
@@ -1014,7 +1024,7 @@ def phase_serve(path: str, dev, state,
         if not (-50.0 < rms_db < -3.0 and np.max(np.abs(y)) <= 1.0):
             raise AssertionError(f"{path}: output level {rms_db:.1f} dBFS "
                                  "is not speech scale")
-    missing = [k for k in PATHS[path][1] if launches[k] == 0]
+    missing = unlaunched(launches, path)
     if missing and dev.type == "cuda":
         raise AssertionError(f"{path} path did not launch: {missing}")
     say(f"[4 serve] {path}: {len(xs)} requests ({sum(durs):.1f} s of audio,"
@@ -1022,6 +1032,25 @@ def phase_serve(path: str, dev, state,
         f" kernel launches {launches}; output RMS "
         + ", ".join(f"{10 * math.log10(float(np.mean(y ** 2))):.1f}"
                     for y in ys) + " dBFS")
+    transfer = None
+    if path == "default":
+        # the same requests, seed and model through the two other transfer
+        # encodings: ulaw8 and pcm12 decoded on the host against float32
+        # clipped to the codes' range [-1, 1], as int16 codes would be
+        f32, p12 = (Converter(model, assets, cfg, transfer_encoding=enc,
+                              device=dev).convert_batch(
+                        xs, [SPEAKERS[i] for i in src],
+                        [SPEAKERS[i] for i in trg], seed=0)
+                    for enc in ("float32", "pcm12"))
+        refs = [np.clip(y, -1.0, 1.0) for y in f32]
+        transfer = {"ulaw8": min_snr_db(refs, ys),
+                    "pcm12": min_snr_db(refs, p12)}
+        say(f"[4 serve] {path}: transfer SNR against clipped float32, min "
+            f"over the requests: ulaw8 {transfer['ulaw8']:.1f} dB (floor 30), "
+            f"pcm12 {transfer['pcm12']:.1f} dB (floor 50)")
+        if not (transfer["ulaw8"] >= 30.0 and transfer["pcm12"] >= 50.0):
+            raise AssertionError(f"{path}: transfer SNRs {transfer} under "
+                                 "their floors")
     snr = None
     if path != "nccf":
         # the card against the CPU on a small input: same params in
@@ -1049,7 +1078,7 @@ def phase_serve(path: str, dev, state,
         if not snr >= 30.0:
             raise AssertionError(f"{path}: card and CPU disagree: SNR "
                                  f"{snr:.1f} dB")
-    return conv, launches, snr
+    return conv, launches, snr, transfer
 
 
 def phase_entry_points(conv, dev) -> dict:
@@ -1077,7 +1106,7 @@ def phase_entry_points(conv, dev) -> dict:
     sync()
     wall = time.perf_counter() - t0
     stream_launches = read_counts()
-    missing = [k for k in PATHS["fused"][1] if stream_launches[k] == 0]
+    missing = unlaunched(stream_launches, "fused")
     if abs(len(y) - len(x)) > st.halo + conv.cfg.hop or not (
             np.all(np.isfinite(y)) and np.std(y) > 1e-4):
         raise AssertionError(f"streaming: {len(y)} samples for {len(x)}, "
@@ -1117,7 +1146,7 @@ def phase_entry_points(conv, dev) -> dict:
                                        for v in stats):
         raise AssertionError("cli.analyze: records or etc/ stats missing "
                              "or not finite")
-    missing = [k for k in DIO_KERNELS if cli_launches[k] == 0]
+    missing = unlaunched(cli_launches, model=False)
     if missing and cuda:
         raise AssertionError(f"cli.analyze did not launch: {missing}")
     say(f"[4 serve] fused: python -m tpuvc_torch.cli.analyze over 2 speakers"
@@ -1371,7 +1400,7 @@ def phase_train(dev, tmp: str, arch_path: str = TRAIN_ARCH,
     sync()
     rec["analyze_s"] = time.perf_counter() - t0
     rec["analyze_launches"] = read_counts()
-    missing = [k for k in DIO_KERNELS if rec["analyze_launches"][k] == 0]
+    missing = unlaunched(rec["analyze_launches"], model=False)
     if missing and cuda:
         raise AssertionError(f"train corpus: cli.analyze did not launch "
                              f"{missing}")
@@ -1620,7 +1649,7 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
         "all_pairs", cli_convert.main,
         common + ["--all_pairs", "--transfer-encoding", "ulaw8", "--output",
                   os.path.join(out, "all_pairs")],
-        DIO_KERNELS + MODEL_KERNELS)
+        path_kernels("default"))
     want = len(speakers) * n_test * (len(speakers) - 1)
     if len(outs) != want:
         raise AssertionError(f"all pairs: {len(outs)} files for {want}")
@@ -1642,7 +1671,7 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
         "harvest_decim2", cli_convert.main,
         common + ["--src", src, "--trg", trg, "--f0-method", "harvest",
                   "--harvest-decim", "2", "--save_spectrogram", "--output",
-                  out_h], HARVEST_KERNELS + MODEL_KERNELS)
+                  out_h], path_kernels("harvest_decim2"))
     check_wavs("harvest decim 2", outs)
     pngs = [f for f in os.listdir(out_h) if f.endswith(".png")]
     has_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -1660,7 +1689,7 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
         "streaming", cli_convert.main,
         common + ["--src", src, "--trg", trg, "--streaming", "--output",
                   os.path.join(out, "streaming")],
-        DIO_KERNELS + MODEL_KERNELS)
+        path_kernels("default"))
     check_wavs("streaming", outs)
     say(f"[7 convert] cli.convert {src}->{trg} --streaming: {len(outs)} "
         f"files in {wall:.3f} s; kernel launches {launches}")
@@ -1691,12 +1720,13 @@ def phase_convert(dev, run: str, corpus: str, out: str) -> dict:
     rt, wall, launches = drive(
         "evaluate_round_trip", cli_evaluate.main,
         ["--corpus", corpus, "--limit", "4", "--device", dev.type],
-        DIO_KERNELS)
+        path_kernels("default", model=False))
     if not (finite_json(rt) and rt["mean"] < 8.0):
         raise AssertionError(f"cli.evaluate round trip: {rt}")
     cv, wall_cv, launches_cv = drive(
         "evaluate_conversion", cli_evaluate.main,
-        common + ["--src", src, "--trg", trg], DIO_KERNELS)
+        common + ["--src", src, "--trg", trg],
+        path_kernels("default", model=False))
     if not (finite_json(cv) and cv["n_utterances"] == n_test):
         raise AssertionError(f"cli.evaluate conversion: {cv}")
     rec["evaluate_round_trip"]["result"] = rt
@@ -1805,7 +1835,7 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
         call(mesh)                                    # replicas, warm-up
         _, _, one = counted(lambda: call(None))
         _, _, dp = counted(lambda: call(mesh))
-        per_shard(path, one, dp, PATHS[path][1])
+        per_shard(path, one, dp, path_kernels(path))
         def in_turn():
             # the shards' work without the threads: one unsharded call
             # per shard, one after the other
@@ -1857,7 +1887,7 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
 
     ys_one, wall_one, one = counted(lambda: streams(None))
     ys_dp, wall_dp, dp = counted(lambda: streams(mesh))
-    missing = [k for k in DIO_KERNELS if cuda and dp[k] == 0]
+    missing = unlaunched(dp, model=False) if cuda else []
     snr = min_snr_db(ys_one, ys_dp)
     rec["multistream"] = {"streams": n_streams, "wall_s": [wall_one,
                                                            wall_dp],
@@ -1887,7 +1917,8 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
                                  "or non-finite")
         rels[name] = ((a - r).abs().max()
                       / r.abs().max().clamp(min=1e-12)).item()
-    per_shard("analyze_sharded", one, dp, DIO_KERNELS,
+    per_shard("analyze_sharded", one, dp,
+              path_kernels("default", model=False),
               ("events", "scan", "extend"))
     rec["analyze_sharded"] = {"seconds": long_s, "wall_s": [wall_one,
                                                             wall_dp],
@@ -2014,7 +2045,7 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
                       for f in ref_names],
                      [read_wav(os.path.join(out_dp, f))[0]
                       for f in ref_names])
-    missing = [k for k in DIO_KERNELS if cuda and launches[k] == 0]
+    missing = unlaunched(launches, model=False) if cuda else []
     rec["cli_data_parallel"] = {"files": len(outs), "wall_s": wall,
                                 "launches": launches,
                                 "vs_phase7_snr_db": snr}
@@ -2033,28 +2064,9 @@ def phase_parallel(dev, state, corpus: str, run: str, all_pairs_dir: str,
 
 # --- phase 9: bench ---------------------------------------------------------
 
-# the keys of the JAX entry points' JSON (bench.py, scripts/bench_*.py,
-# scripts/compute_only.py; bench_stages.py's ``results``)
+# the keys of the JAX entry points' JSON (scripts/compute_only.py;
+# bench_stages.py's ``results``)
 BENCH_KEYS = {
-    "throughput": {"metric", "value", "unit", "vs_baseline", "batch",
-                   "utterance_s", "encoding", "ulaw_snr_db", "pcm12_snr_db",
-                   "wall_s_per_call", "strategy", "strategies", "latency_s",
-                   "latency_x_realtime", "compile_wall_s", "aot_cache",
-                   "device", "int16", "pcm12"},
-    "harvest": {"metric", "value", "unit", "harmonics_impl", "refine_impl",
-                "channel_decim", "batch", "utterance_s", "wall_s_per_call",
-                "spread", "first_call_s_incl_compile", "device"},
-    "streaming": {"metric", "encoding", "device", "sweep",
-                  "paced_multistream"},
-    "sweep": {"chunk_s", "halo_s", "median_chunk_wall_s", "p90_chunk_wall_s",
-              "stream_x_realtime", "latency_s_buffered_plus_wall",
-              "throughput_whole_stream_x", "n_chunks",
-              "first_call_s_incl_compile"},
-    "paced": {"n_streams", "chunk_s", "paced", "n_ticks", "p50_tick_wall_s",
-              "p90_tick_wall_s", "p99_tick_wall_s", "max_tick_wall_s",
-              "deadline_miss_rate", "max_completion_lag_s",
-              "aggregate_x_realtime_at_pace", "per_stream_latency_s_p50",
-              "first_tick_s_incl_compile"},
     "compute_only": {"metric", "value", "unit", "s_per_call", "batch",
                      "utterance_s", "k", "d2s_impl", "device"},
     "stages": {"dio", "stonemask", "cheaptrick", "d4c_group_delay",
@@ -2063,10 +2075,10 @@ BENCH_KEYS = {
 
 
 def sync_sites(dev, batch: int, dur_s: float) -> dict:
-    """Host syncs hidden in one default call (bench_torch.py's, ulaw8, no
-    copy to the host) after a warm-up one: every synchronising operation
-    that torch.cuda.set_sync_debug_mode("warn") reports while the call
-    runs, counted by the innermost line of the port that led to it (a
+    """Host syncs hidden in one default call (ulaw8, no copy to the host)
+    after a warm-up one: every synchronising operation that
+    torch.cuda.set_sync_debug_mode("warn") reports while the call runs,
+    counted by the innermost line of the port that led to it (a
     report with no line of the port on the stack, as switching the mode
     can give, is counted apart); the record keeps the 12 lines with the
     most."""
@@ -2075,8 +2087,10 @@ def sync_sites(dev, batch: int, dur_s: float) -> dict:
     import warnings
     import torch
     from tpuvc_torch.bench import common
+    from tpuvc_torch.ops import ulaw
     model, arch = common.seeded_model(dev)
-    call = common.device_call(model, encoding="ulaw8")
+    base = common.device_call(model)
+    call = lambda *a: ulaw.ulaw_encode(base(*a))  # noqa: E731
     args = common.on_device(common.make_inputs(batch, dur_s,
                                                y_dim=arch.y_dim), dev)
     call(*args)
@@ -2109,18 +2123,18 @@ def sync_sites(dev, batch: int, dur_s: float) -> dict:
         12)), "n_sites": len(sites), "outside_the_call": outside}
 
 
-def phase_bench(dev, batch: int = 128, harvest_batch: int = 32,
-                dur_s: float = 4.0, k: int = 2, reps: int = 3,
-                stream_s: float = 4.0, n_streams: int = 16, ticks: int = 20,
-                compute_k: int = 4, stage_batch: int = 32) -> dict:
-    """The port's bench entry points (tpuvc_torch.bench) at reduced
+def phase_bench(dev, batch: int = 128, dur_s: float = 4.0, k: int = 2,
+                reps: int = 3, compute_k: int = 4,
+                stage_batch: int = 32) -> dict:
+    """The port's microbenchmarks (tpuvc_torch.bench) at reduced
     repetitions, counters zeroed just before and read just after each:
-    each one's JSON keys equal the JAX script's, the transfer SNRs hold
-    their floors, its path's kernels launched."""
+    each one's JSON keys equal the JAX script's, its path's kernels
+    launched; then, on the card, one default call's host syncs."""
     import torch
-    from tpuvc_torch.bench import (compute_only, harvest, stages, streaming,
-                                   throughput)
+    from tpuvc_torch.bench import compute_only, stages
+    from tpuvc_torch.models.vae import serving_kernels
     from tpuvc_torch.ops._build import read_counts, reset_counts
+    from tpuvc_torch.utils.config import Architecture
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     out = {"launches": {}, "wall_s": {}}
@@ -2146,35 +2160,16 @@ def phase_bench(dev, batch: int = 128, harvest_batch: int = 32,
             raise AssertionError(f"bench {name}: keys {sorted(rec)} are not "
                                  f"the JAX script's {sorted(want)}")
 
-    rec = out["throughput"] = entry(
-        "throughput", DIO_KERNELS, lambda: throughput.measure(
-            batch, dur_s, "both", k=k, reps=reps, device=dev))
-    keys("throughput", rec, BENCH_KEYS["throughput"])
-    if not (rec["ulaw_snr_db"] >= 30.0 and rec["pcm12_snr_db"] >= 50.0):
-        raise AssertionError(f"bench throughput: ulaw8 {rec['ulaw_snr_db']}"
-                             f" dB (floor 30), pcm12 {rec['pcm12_snr_db']} "
-                             "dB (floor 50)")
-    rec = out["harvest"] = entry(
-        "harvest", HARVEST_KERNELS, lambda: harvest.measure(
-            harvest_batch, dur_s, 1, k=k, reps=reps, device=dev))
-    keys("harvest", rec, BENCH_KEYS["harvest"])
-    rec = out["streaming"] = entry(
-        "streaming", DIO_KERNELS, lambda: streaming.run(
-            chunks=(0.5,), streams=(n_streams,), paced_chunks=(0.5,),
-            ticks=ticks, device=dev, signal_s=stream_s))
-    keys("streaming", rec, BENCH_KEYS["streaming"])
-    for r in rec["sweep"]:
-        keys("streaming sweep", r, BENCH_KEYS["sweep"])
-    for r in rec["paced_multistream"]:
-        keys("streaming paced", r, BENCH_KEYS["paced"])
+    dio = path_kernels("default", model=False)
     out["compute_only"] = {}
-    for impl, kernels in (("xla", DIO_KERNELS),
-                          ("pallas", DIO_KERNELS + ("d2s",))):
+    for impl in ("xla", "pallas"):
         rec = out["compute_only"][impl] = entry(
-            f"compute_only {impl}", kernels, lambda: compute_only.measure(
-                batch, dur_s, compute_k, impl, device=dev))
+            f"compute_only {impl}",
+            dio + serving_kernels(Architecture(d2s_impl=impl)),
+            lambda: compute_only.measure(batch, dur_s, compute_k, impl,
+                                         device=dev))
         keys("compute_only", rec, BENCH_KEYS["compute_only"])
-    rec = out["stages"] = entry("stages", DIO_KERNELS, lambda: stages.measure(
+    rec = out["stages"] = entry("stages", dio, lambda: stages.measure(
         stage_batch, dur_s, k=k, reps=reps, device=dev))
     keys("stages", rec["results"], BENCH_KEYS["stages"])
     if cuda:
@@ -2262,7 +2257,7 @@ def phase_quality(dev, tmp: str, n_train: int = 3, scale_steps: int = 20,
         sync()
         out["wall_s"][name] = time.perf_counter() - t0
         out["launches"][name] = launches = read_counts()
-        missing = [k for k in DIO_KERNELS if launches[k] == 0]
+        missing = unlaunched(launches, model=False)
         if missing and cuda:
             raise AssertionError(f"quality {name} did not launch {missing}")
         bad = common.non_finite(rec, name)
@@ -2628,13 +2623,14 @@ def main() -> int:
     state = build_state()
     kern = phase_kernels(dev, state)
     torch.cuda.empty_cache()
-    launches, snrs, rates, entry = {}, {}, {}, None
+    launches, snrs, transfers, rates, entry = {}, {}, {}, {}, None
     for path in PATHS:
-        conv, launches[path], snrs[path] = phase_serve(path, dev, state)
+        conv, launches[path], snrs[path], transfers[path] = phase_serve(
+            path, dev, state)
         if path == "fused":
             entry = phase_entry_points(conv, dev)
         rates[path] = phase_rate(
-            path, conv, smi, dev, PATHS[path][2],
+            path, conv, smi, dev, PATHS[path][1],
             profile_dir=(args.out if args.profile and path != "nccf"
                          else None),
             budget_batch=128 if path == "harvest" else None)
@@ -2642,7 +2638,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     model_s = {p: rates[p]["stages_s"]["model"] for p in ("default", "fused")}
     say(f"[5 rate] model stage (encode + decode) at batch "
-        f"{PATHS['fused'][2]} x 4 s: default {model_s['default']:.4f} s, "
+        f"{PATHS['fused'][1]} x 4 s: default {model_s['default']:.4f} s, "
         f"fused {model_s['fused']:.4f} s")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -2681,7 +2677,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": smi, "kernels": kern, "launches": launches,
-                       "card_vs_cpu_snr_db": snrs, "entry_points": entry,
+                       "card_vs_cpu_snr_db": snrs,
+                       "transfer_snr_db": transfers, "entry_points": entry,
                        "rate": rates, "train": train, "convert": convert,
                        "parallel": parallel, "host": host,
                        "bench": bench, "quality": quality},

@@ -18,7 +18,7 @@ import torch
 
 from tpuvc_torch.dsp.constants import (DIO_ALLOWED_RANGE,
                                        HARVEST_EXTENSION_ALLOWED)
-from tpuvc_torch.ops import contour
+from tpuvc_torch.ops import _build, contour
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,10 +178,10 @@ def test_plain_matches_jax(kind, c, n):
     candidates at its 0.1 threshold, Harvest's 10 at 0.05, over 1, 201
     (a live tick) and 1201 (a 6 s corpus row) frames."""
     f0, cands, allowed = case(kind, c, n)
-    n0 = contour.launches_extend
+    n0 = _build.read_counts()["extend"]
     got = contour.extend_scans(torch.from_numpy(f0),
                                torch.from_numpy(cands), allowed).numpy()
-    assert contour.launches_extend == n0
+    assert _build.read_counts()["extend"] == n0
     ref = _jax_extend_both(f0, cands, allowed)
     assert np.array_equal(_bits(got), _bits(ref))
     if kind == "unvoiced":
@@ -342,9 +342,9 @@ def _kernel_equals_plain(f0, cands, allowed, dev, layout):
     c_dev = _on(cands, dev, layout)
     assert c_dev.is_contiguous() == (layout == "bnc" or cands.shape[1] == 1
                                      or cands.shape[2] == 1)
-    n0 = contour.launches_extend
+    n0 = _build.read_counts()["extend"]
     got = contour.extend_scans(torch.from_numpy(f0).to(dev), c_dev, allowed)
-    assert contour.launches_extend == n0 + 1 and got.device == c_dev.device
+    assert _build.read_counts()["extend"] == n0 + 1 and got.device == c_dev.device
     assert np.array_equal(_bits(got.cpu().numpy()), _bits(ref.numpy()))
 
 
@@ -388,12 +388,12 @@ def test_one_launch_per_call(cuda, method, monkeypatch):
                   for i, f in enumerate((130.0, 220.0))]).astype(f32)
     x = torch.from_numpy(x).to(cuda)
     fn = getattr(mod, method)
-    n0 = contour.launches_extend
+    n0 = _build.read_counts()["extend"]
     got = fn(x)
-    assert contour.launches_extend == n0 + 1
+    assert _build.read_counts()["extend"] == n0 + 1
     monkeypatch.setattr(mod, "extend_scans", contour.extend_scans_plain)
     ref = fn(x)
-    assert contour.launches_extend == n0 + 1
+    assert _build.read_counts()["extend"] == n0 + 1
     assert (got > 0).any() and torch.equal(got, ref)
 
 

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpuvc_torch.ops import conv, d2s, events, harmonics, smooth, topk, window
+from tpuvc_torch.ops import (_build, conv, d2s, events, harmonics, smooth,
+                             topk, window)
 from tpuvc_torch.ops.arith import rdiv
 
 
@@ -101,7 +102,7 @@ def test_events_plain_bitexact(case):
     for c in range(bank.shape[0]):
         for row, r in enumerate(_xla_pairs(jnp.asarray(bank[c]), stride)):
             assert np.array_equal(got[c, row, :r.shape[0]], r), (c, row)
-    assert events.launches == 0          # the CPU path launched nothing
+    assert _build.read_counts()["events"] == 0   # the CPU path launched nothing
 
 
 def _nonfinite_bank(case):
@@ -619,7 +620,7 @@ def test_topk_sum_plain_matches_pallas_and_lax(kk):
     assert np.array_equal(got, pal)
     ref = np.sum(np.asarray(jax.lax.top_k(jnp.asarray(ps), kk)[0]), -1)
     np.testing.assert_allclose(got, ref, rtol=1e-6)
-    assert topk.launches == 0
+    assert _build.read_counts()["topk"] == 0
 
 
 def _topk_rows(c, seed=9):
@@ -724,7 +725,7 @@ def test_refine_score_plain_matches_pallas():
     assert (r_got > 0).sum() > 300 and (r_got[:, 5:] == 0).all()
     np.testing.assert_allclose(r_got, r_ref, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(s_got, s_ref, rtol=1e-4, atol=1e-5)
-    assert harmonics.launches_refine == 0
+    assert _build.read_counts()["refine"] == 0
 
 
 def _adversarial_pairs(nb, seed=5, c=3):
@@ -769,7 +770,7 @@ def test_scan_plain_matches_pallas(nb):
     got = events.top2_block_scans(torch.from_numpy(pairs)).numpy()
     assert got.shape == pairs.shape
     assert np.array_equal(got, ref[..., :nb])
-    assert events.launches_scan == 0
+    assert _build.read_counts()["scan"] == 0
 
 
 @pytest.mark.parametrize("stride,l,cin,cout,k", [
@@ -792,7 +793,7 @@ def test_conv_plain_matches_pallas(stride, l, cin, cout, k):
                              stride, 0.2).numpy()
     assert got.shape == ref.shape == (5, -(-l // stride), cout)
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
-    assert conv.launches == 0
+    assert _build.read_counts()["conv"] == 0
 
 
 # the encoder's five layers at stride 3: L, Cin, Cout (K = 7)
@@ -947,7 +948,7 @@ def test_d2s_plain_matches_pallas(bsz, l, c, s, dtype):
     tol = (2e-4, 2e-5) if dtype == "float32" else (8e-3, 1e-5)
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol[0],
                                atol=tol[1])
-    assert d2s.launches == 0
+    assert _build.read_counts()["d2s"] == 0
 
 
 @pytest.mark.parametrize("name", ["events", "harmonics", "window", "smooth",
@@ -978,6 +979,34 @@ def test_wrappers_refuse_wrong_inputs(name):
         else:
             smooth.box_smooth(torch.zeros((4, 500)), torch.ones(4), 16000,
                               1024, 810.0)
+
+
+def test_transfer_snrs_match_the_jax_decoders():
+    """The transfer encodings' SNRs (bench.py:243-251: each decoding
+    against the int16 codes of the same waveforms) on one set of codes,
+    with the port's ulaw8 and pcm12 decoders and with tpuvc.ops.ulaw's:
+    equal to 1e-6 dB."""
+    from tpuvc.ops import ulaw as jax_ulaw
+    from tpuvc_torch.ops import ulaw
+    rng = np.random.default_rng(5)
+    y = torch.tensor(np.clip(0.3 * rng.standard_normal((2, 1601)), -1, 1),
+                     dtype=torch.float32)
+    i16 = torch.clamp(y * 32767.0, -32768.0, 32767.0).to(torch.int16)
+    u8 = ulaw.ulaw_encode(y).numpy()
+    p12 = ulaw.pcm12_encode(y).numpy()
+    ref = i16.numpy().astype(np.float32) / 32767.0
+    n = ref.shape[-1]
+
+    def snr_db(dec):
+        num = float(np.sum(ref * ref))
+        return 10.0 * math.log10(
+            num / max(float(np.sum((np.asarray(dec) - ref) ** 2)), 1e-20))
+    got = [snr_db(ulaw.ulaw_decode(u8)),
+           snr_db(ulaw.pcm12_decode(p12, n_samples=n))]
+    want = [snr_db(jax_ulaw.ulaw_decode(u8)),
+            snr_db(jax_ulaw.pcm12_decode(p12, n_samples=n))]
+    assert abs(got[0] - want[0]) < 1e-6 and abs(got[1] - want[1]) < 1e-6
+    assert 30.0 < got[0] < 45.0 and got[1] > 55.0
 
 
 # --- kernels on the card (skip here: no CUDA device) -------------------
@@ -1013,7 +1042,7 @@ def test_events_kernel_bitexact(cuda, case):
                                     else case)
     bank = torch.from_numpy(bank)
     ref = events.event_block_pairs_plain(bank, stride)
-    n0 = events.launches
+    n0 = _build.read_counts()["events"]
     dev = bank.to(cuda)
     if case == "misaligned":
         dev = torch.zeros(bank.numel() + 1, device=cuda)
@@ -1021,7 +1050,7 @@ def test_events_kernel_bitexact(cuda, case):
         dev = dev[1:].view(bank.shape)
         assert dev.data_ptr() % 16
     got = events.event_block_pairs(dev, stride).cpu()
-    assert events.launches == n0 + 1
+    assert _build.read_counts()["events"] == n0 + 1
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
     if not ref.isnan().any():
         assert torch.equal(got, ref)
@@ -1045,10 +1074,10 @@ def test_harmonics_kernel_matches_plain(cuda, fold, with_if, k):
     f0 = torch.from_numpy(f0)
     ref = harmonics.harmonic_dft_plain(seg, f0, 16000, with_if=with_if,
                                        fold=fold)
-    n0 = harmonics.launches
+    n0 = _build.read_counts()["harmonics"]
     got = harmonics.harmonic_dft(seg.to(cuda), f0.to(cuda), 16000,
                                  with_if=with_if, fold=fold)
-    assert harmonics.launches == n0 + 1
+    assert _build.read_counts()["harmonics"] == n0 + 1
     for g, r in zip(got, ref):
         if r is None:
             assert g is None
@@ -1076,9 +1105,9 @@ def test_window_kernel_matches_plain(cuda, n):
              [(seg[i:i + 1], f0[i:i + 1]) for i in range(len(_WINDOW_F0))])
     for s, f in cases:
         ref = window.windowed_frames_plain(s, f, 16000)
-        n0 = window.launches
+        n0 = _build.read_counts()["window"]
         got = window.windowed_frames(s.to(cuda), f.to(cuda), 16000)
-        assert window.launches == n0 + 1
+        assert _build.read_counts()["window"] == n0 + 1
         for g, r in zip(got, ref):
             np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=1e-5,
                                        atol=1e-6)
@@ -1121,9 +1150,9 @@ def test_smooth_kernel_matches_plain(cuda, cap, signed, n):
     if n == 1:
         ps, width = ps[5:6], width[:1]
     ref = smooth.box_smooth_plain(ps, width, 16000, 1024, cap)
-    n0 = smooth.launches
+    n0 = _build.read_counts()["smooth"]
     got = smooth.box_smooth(ps.to(cuda), width.to(cuda), 16000, 1024, cap)
-    assert smooth.launches == n0 + 1
+    assert _build.read_counts()["smooth"] == n0 + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -1146,9 +1175,9 @@ def test_topk_kernel_matches_plain(cuda, c):
     for kk in (1, 21, c):
         ref = topk.topk_sum_plain(ps, kk)
         for x in cases:
-            n0 = topk.launches
+            n0 = _build.read_counts()["topk"]
             got = topk.topk_sum(x, kk).cpu()
-            assert topk.launches == n0 + 1
+            assert _build.read_counts()["topk"] == n0 + 1
             assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), kk
 
 
@@ -1167,9 +1196,9 @@ def test_refine_kernel_matches_plain(cuda, k_slots):
         f0[k + 6::17, k] = 800.0
     seg, f0 = torch.from_numpy(seg), torch.from_numpy(f0[:, :k_slots].copy())
     ref = harmonics.refine_score_plain(seg, f0, 16000, 63.9, 0.2)
-    n0 = harmonics.launches_refine
+    n0 = _build.read_counts()["refine"]
     got = harmonics.refine_score(seg.to(cuda), f0.to(cuda), 16000, 63.9, 0.2)
-    assert harmonics.launches_refine == n0 + 1
+    assert _build.read_counts()["refine"] == n0 + 1
     r_got, s_got = (v.cpu().numpy() for v in got)
     assert np.array_equal(r_got > 0, ref[0].numpy() > 0)
     np.testing.assert_allclose(r_got, ref[0].numpy(), rtol=1e-5, atol=1e-4)
@@ -1183,9 +1212,9 @@ def test_scan_kernel_bitexact(cuda):
     for nb, seed in ((256, 5), (161, 6), (4000, 7), (1, 8)):
         pairs = torch.from_numpy(_adversarial_pairs(nb, seed, c=37))
         ref = events.top2_block_scans_plain(pairs)
-        n0 = events.launches_scan
+        n0 = _build.read_counts()["scan"]
         got = events.top2_block_scans(pairs.to(cuda)).cpu()
-        assert events.launches_scan == n0 + 1
+        assert _build.read_counts()["scan"] == n0 + 1
         assert torch.equal(got, ref), nb
 
 
@@ -1207,10 +1236,10 @@ def test_conv_kernel_matches_plain(cuda, stride, l, cin, cout, case, n):
     route's tile of 64-256 rows) and one frame."""
     x, w, b, g, bt = _conv_inputs(case, n, l, cin, cout)
     ref = conv.conv_ln_lrelu_plain(x, w, b, g, bt, stride, 0.2)
-    n0 = conv.launches
+    n0 = _build.read_counts()["conv"]
     got = conv.conv_ln_lrelu(*(t.to(cuda) for t in (x, w, b, g, bt)), stride,
                              0.2).cpu()
-    assert conv.launches == n0 + 1
+    assert _build.read_counts()["conv"] == n0 + 1
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4)
 
@@ -1238,11 +1267,11 @@ def test_conv_kernel_on_every_card(cuda):
                                        atol=1e-4, err_msg=str(d))
 
     mesh = mesh_lib.make_mesh()
-    n0 = conv.launches
+    n0 = _build.read_counts()["conv"]
     for i, d in enumerate(mesh.devices):
         on(i, d)
     mesh_lib.run_shards(mesh, on)
-    assert conv.launches == n0 + 2 * mesh.size * len(shapes)
+    assert _build.read_counts()["conv"] == n0 + 2 * mesh.size * len(shapes)
 
 
 @pytest.mark.gpu
@@ -1260,9 +1289,9 @@ def test_d2s_kernel_matches_plain(cuda, l, c, dtype):
         np.float32))
     b = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
     ref = d2s.d2s_ln_lrelu_plain(x, g, b, 3, 0.2)
-    n0 = d2s.launches
+    n0 = _build.read_counts()["d2s"]
     got = d2s.d2s_ln_lrelu(x.to(cuda), g.to(cuda), b.to(cuda), 3, 0.2).cpu()
-    assert d2s.launches == n0 + 1 and got.dtype == dt
+    assert _build.read_counts()["d2s"] == n0 + 1 and got.dtype == dt
     tol = (1e-5, 1e-5) if dtype == "float32" else (8e-3, 1e-5)
     np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
                                rtol=tol[0], atol=tol[1])

@@ -114,24 +114,26 @@ def test_run_shards_order_threads_and_errors(mesh8):
 
 def test_launch_counters_are_thread_safe():
     """_build.count under contention: 16 threads x 2000 increments with a
-    short switch interval lose none (a bare += would)."""
-    from tpuvc_torch.ops import _build, events
-    before = events.launches
+    short switch interval lose none (a bare += would) and touch no other
+    kernel's counter."""
+    from tpuvc_torch.ops import _build
+    _build.reset_counts()
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(target=lambda: [
-            _build.count(events.__name__, "launches")
-            for _ in range(2000)]) for _ in range(16)]
+            _build.count("events") for _ in range(2000)])
+            for _ in range(16)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads)
+        assert _build.read_counts() == dict(
+            dict.fromkeys(_build.KERNEL_NAMES, 0), events=16 * 2000)
     finally:
         sys.setswitchinterval(interval)
-    assert events.launches == before + 16 * 2000
-    events.launches = before
+        _build.reset_counts()
 
 
 # --- frame-sharded analysis ------------------------------------------------

@@ -329,17 +329,17 @@ def test_converter_harvest_path_and_default_device():
 
 
 def test_port_imports_no_jax():
-    """Every tpuvc_torch module, bench_torch.py, chip_smoke.py and every
-    module chip_smoke.py imports (inside its functions too) import without
-    jax, jaxlib, flax, optax, orbax or any module of the JAX package tpuvc
-    (the card's machine has none of them)."""
+    """Every tpuvc_torch module, chip_smoke.py and every module
+    chip_smoke.py imports (inside its functions too) import without jax,
+    jaxlib, flax, optax, orbax or any module of the JAX package tpuvc (the
+    card's machine has none of them)."""
     code = (
         "import ast, pkgutil, sys, importlib, tpuvc_torch\n"
         "for m in pkgutil.walk_packages(tpuvc_torch.__path__, "
         "'tpuvc_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "n = sum(m.startswith('tpuvc_torch') for m in sys.modules)\n"
-        "import bench_torch, chip_smoke\n"
+        "import chip_smoke\n"
         "tree = ast.parse(open(chip_smoke.__file__).read())\n"
         "for node in ast.walk(tree):\n"
         "    if isinstance(node, ast.Import):\n"
@@ -357,8 +357,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    # 83 modules since the quality package (train/ is 6 of them,
-    # parallel/ 5, bench/ 8, quality/ 7): a missing package falls below
+    # 84 modules since the retired benches went (train/ is 6 of them,
+    # parallel/ 5, bench/ 4, quality/ 7): a missing package falls below
     # the bound
     assert int(out.stdout.split()[0]) >= 80
 
@@ -413,7 +413,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     nothing launches and the kernel/plain errors are exactly 0), and its
     JSON record names all eleven kernels with every key."""
     import chip_smoke
-    from tpuvc_torch.ops._build import counters
+    from tpuvc_torch.ops._build import KERNEL_NAMES
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
     cpu = torch.device("cpu")
     state = chip_smoke.build_state()
@@ -448,18 +448,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
         16, 32, 64, 128, 256, 2432, 128, 64, 32, 16]
     assert all(r["bound_by"] == "bytes" and r["library_ms"] is not None
                for r in kern["norm"])
-    for path, (_, kernels, _, _) in chip_smoke.PATHS.items():
-        assert "norm" in kernels, path
+    for path in chip_smoke.PATHS:
+        assert "norm" in chip_smoke.path_kernels(path), path
     launches = {}
     for path in chip_smoke.PATHS:
-        conv, launches[path], snr = chip_smoke.phase_serve(
+        conv, launches[path], snr, transfer = chip_smoke.phase_serve(
             path, cpu, state, durs=(0.6, 1.1))
         # nothing launches on the CPU, the model's K11 included
-        assert launches[path] == dict.fromkeys(counters(), 0)
+        assert launches[path] == dict.fromkeys(KERNEL_NAMES, 0)
         assert (snr is None) == (path == "nccf")
+        # the default path alone checks ulaw8 and pcm12 against float32
+        assert (transfer is None) == (path != "default")
+        if transfer is not None:
+            assert transfer["ulaw8"] >= 30.0 and transfer["pcm12"] >= 50.0
         if path == "fused":
             entry = chip_smoke.phase_entry_points(conv, cpu)
-            assert entry["analyze_launches"] == dict.fromkeys(counters(), 0)
+            assert entry["analyze_launches"] == dict.fromkeys(KERNEL_NAMES, 0)
         rate = chip_smoke.phase_rate(
             path, conv, "cpu", cpu, batch=2, dur_s=0.5,
             budget_batch=3 if path == "harvest" else None)

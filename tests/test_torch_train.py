@@ -23,7 +23,7 @@ from tpuvc.utils.config import Architecture, NetSpec, TrainConfig
 from tpuvc_torch.models import losses as port_losses
 from tpuvc_torch.models import params as port_params
 from tpuvc_torch.models.vae import Critic
-from tpuvc_torch.ops._build import counters
+from tpuvc_torch.ops._build import KERNEL_NAMES
 from tpuvc_torch.train import steps as port_steps
 from tpuvc_torch.utils import config as port_config
 
@@ -696,8 +696,8 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
         n_test=2, dur_s=0.5, steps=2, resident=2, vae_steps=40,
         step_batch=B)
     assert rec["resumed_at"] == 2 and rec["final_step"] == 4
-    assert rec["analyze_launches"] == dict.fromkeys(counters(), 0)
-    assert rec["train_launches"] == dict.fromkeys(counters(), 0)
+    assert rec["analyze_launches"] == dict.fromkeys(KERNEL_NAMES, 0)
+    assert rec["train_launches"] == dict.fromkeys(KERNEL_NAMES, 0)
     assert rec["ckpts"] == ["2.pt", "4.pt"]
     assert rec["logged_steps"] == [2, 4]
     assert rec["card_vs_cpu"]["max_rel_err"] == 0.0
@@ -709,7 +709,7 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
                                     str(tmp_path / "converted"))
     calls = ("all_pairs", "harvest_decim2", "streaming",
              "evaluate_round_trip", "evaluate_conversion")
-    assert all(conv[c]["launches"] == dict.fromkeys(counters(), 0)
+    assert all(conv[c]["launches"] == dict.fromkeys(KERNEL_NAMES, 0)
                for c in calls)
     assert conv["all_pairs"]["files"] == 2 * 2 * 1
     assert conv["card_vs_cpu_snr_db"] >= 300.0      # CPU against CPU
@@ -725,7 +725,7 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     for path in ("default", "fused"):
         assert par[path]["dp_vs_one_snr_db"] >= 40.0
         assert par[path]["launches_dp"] == dict.fromkeys(
-            counters(), 0)
+            KERNEL_NAMES, 0)
     assert par["analyze_sharded"]["rel_err"]["sp"] < 1e-3
     assert par["train_2rank"]["devices"] == ["cpu", "cpu"]
     assert par["train_2rank"]["max_rel_err"] < 1e-5

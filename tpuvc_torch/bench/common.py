@@ -1,6 +1,6 @@
-"""What the port's benches share: the inputs ``bench.py`` builds, the
-seeded full-width model, the timed device call, the check that a path's
-kernels launched and a clock for device work."""
+"""What the port's microbenchmarks share: the inputs ``bench.py`` builds,
+the seeded full-width model, the device call and a clock for device
+work."""
 
 from __future__ import annotations
 
@@ -14,29 +14,7 @@ from tpuvc_torch.convert.pipeline import make_batch_convert_fn
 from tpuvc_torch.dsp.constants import DEFAULT_WORLD, WorldConfig
 from tpuvc_torch.dsp.synthesis import synthesis_noise
 from tpuvc_torch.models.params import init_params, load_model
-from tpuvc_torch.ops import ulaw
-from tpuvc_torch.ops._build import read_counts, reset_counts
 from tpuvc_torch.utils.config import Architecture
-
-# the kernels each serving path launches (counter names of
-# ``ops._build.counters``)
-DIO_KERNELS = ("events", "scan", "extend", "harmonics", "window", "smooth",
-               "topk")
-HARVEST_KERNELS = ("events", "scan", "refine", "extend", "window", "smooth",
-                   "topk")
-
-
-def require_launches(kernels, device: torch.device, where: str) -> None:
-    """On the card, raise unless every kernel of ``kernels`` launched since
-    the counters were last set to 0 (a CPU tensor takes the plain
-    versions, which count nothing)."""
-    if torch.device(device).type != "cuda":
-        return
-    counts = read_counts()
-    missing = [k for k in kernels if counts[k] == 0]
-    if missing:
-        raise RuntimeError(f"{where}: kernels did not launch: {missing} "
-                           f"(counts {counts})")
 
 
 def device_name(device: torch.device) -> str:
@@ -100,31 +78,21 @@ def seeded_model(device: torch.device, **arch_fields):
     return load_model(arch, state, device), arch
 
 
-def int16_encode(y: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(y * 32767.0, -32768.0, 32767.0).to(torch.int16)
-
-
-ENCODERS = {"ulaw8": ulaw.ulaw_encode, "pcm12": ulaw.pcm12_encode,
-            "int16": int16_encode}
-
-
-def device_call(model, cfg: WorldConfig = DEFAULT_WORLD, encoding=None):
+def device_call(model, cfg: WorldConfig = DEFAULT_WORLD):
     """The call ``bench.py`` jits, eagerly: fn(xs, y_trgs, xmin, xmax,
     mu_srcs, sd_srcs, mu_trgs, sd_trgs, seeds) -> the waveforms on the
-    device, encoded by ``ENCODERS[encoding]`` unless ``encoding`` is None.
+    device.
     The synthesis noise is drawn inside, on the device, from the host
     ``seeds`` (``synthesis_noise``: one seeded generator per row), as the
     JAX graph draws its noise from ``seeds``."""
     base = make_batch_convert_fn(model, cfg)
-    encode = ENCODERS[encoding] if encoding else None
 
     def call(xs, y_trgs, xmin, xmax, mu_srcs, sd_srcs, mu_trgs, sd_trgs,
              seeds):
         n_samples = (xs.shape[-1] // cfg.hop + 1) * cfg.hop
         noise = synthesis_noise(seeds, n_samples, xs.device)
-        y = base(xs, y_trgs, xmin, xmax, mu_srcs, sd_srcs, mu_trgs,
-                 sd_trgs, noise)
-        return y if encode is None else encode(y)
+        return base(xs, y_trgs, xmin, xmax, mu_srcs, sd_srcs, mu_trgs,
+                    sd_trgs, noise)
 
     return call
 

@@ -27,7 +27,9 @@ import json
 
 from tpuvc_torch.bench import common
 from tpuvc_torch.dsp.constants import DEFAULT_WORLD
-from tpuvc_torch.ops._build import reset_counts
+from tpuvc_torch.dsp.world import analysis_kernels
+from tpuvc_torch.models.vae import serving_kernels
+from tpuvc_torch.ops._build import require_launches, reset_counts
 from tpuvc_torch.utils.device import resolve
 
 
@@ -46,8 +48,8 @@ def measure(batch: int = 128, dur_s: float = 4.0, k: int = 8,
     reset_counts()
     call(*args)                                # warm
     common.sync(dev)
-    kernels = common.DIO_KERNELS + (("d2s",) if d2s_impl == "pallas" else ())
-    common.require_launches(kernels, dev, "bench compute_only")
+    require_launches(analysis_kernels(cfg) + serving_kernels(arch), dev,
+                     "bench compute_only")
 
     best = min(common.per_call_s(lambda: call(*args), k, dev)
                for _ in range(3))

@@ -33,7 +33,8 @@ from tpuvc_torch.bench import common
 from tpuvc_torch.convert.pipeline import _denormalize_sp, _normalize_sp
 from tpuvc_torch.dsp import cheaptrick, d4c, dio, stonemask, synthesis
 from tpuvc_torch.dsp.constants import DEFAULT_WORLD
-from tpuvc_torch.ops._build import reset_counts
+from tpuvc_torch.dsp.world import analysis_kernels
+from tpuvc_torch.ops._build import require_launches, reset_counts
 from tpuvc_torch.utils.device import resolve
 
 
@@ -66,7 +67,7 @@ def measure(batch: int = 32, dur_s: float = 4.0, k: int = 8, reps: int = 3,
     sps = cheaptrick.cheaptrick(xs, f0r, cfg.hop, cfg.fs, cfg.fft_size)
     aps = d4c.d4c(xs, f0r, cfg.hop, cfg.fs, cfg.fft_size, "group_delay")
     common.sync(dev)
-    common.require_launches(common.DIO_KERNELS, dev, "bench stages")
+    require_launches(analysis_kernels(cfg), dev, "bench stages")
 
     def noise():
         return synthesis.synthesis_noise(seeds, n_samples, dev)

@@ -60,6 +60,18 @@ def world_features(x: torch.Tensor,
     return WorldFeatures(f0=f0, sp=sp, ap=ap)
 
 
+def analysis_kernels(cfg: WorldConfig) -> tuple:
+    """The hand-written kernels (``ops._build.KERNEL_NAMES``) that
+    ``world_features`` launches on the card under ``cfg``: the event
+    blocks, their scans and the contour extension of either f0 method,
+    CheapTrick's windowing, the envelopes' smoothing, then StoneMask's
+    harmonic DFT (DIO) or Harvest's refinement, and group-delay D4C's
+    top-k sum."""
+    f0 = {"dio": ("harmonics",), "harvest": ("refine",)}[cfg.f0_method]
+    ap = ("topk",) if cfg.ap_method == "group_delay" else ()
+    return ("events", "scan", "extend", "window", "smooth") + f0 + ap
+
+
 def _on(x, device) -> torch.Tensor:
     """An array or tensor as float32 on ``device`` (the card by default)."""
     if not torch.is_tensor(x):

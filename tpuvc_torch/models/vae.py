@@ -56,6 +56,14 @@ def _check_impls(arch: Architecture) -> None:
                              f"expected one of {IMPLS}")
 
 
+def serving_kernels(arch: Architecture) -> tuple:
+    """The hand-written kernels (``ops._build.KERNEL_NAMES``) that a
+    serving call of ``arch``'s model launches on the card: K11 on every
+    route, K8 and K9 where their switches pick them."""
+    return (("norm",) + (("conv",) if arch.conv_impl == "pallas" else ())
+            + (("d2s",) if arch.d2s_impl == "pallas" else ()))
+
+
 class Conv(nn.Module):
     """1-D convolution over [B, L, Cin] with Flax SAME padding."""
 

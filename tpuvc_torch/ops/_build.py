@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import sys
 import threading
 import time
 
@@ -110,41 +109,43 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def count(module: str, counter: str) -> None:
-    """Add one to the launch counter ``counter`` of the wrapper module
-    ``module`` (a ``__name__``).  The counters stay plain module integers
-    that a caller reads and sets to 0; the increment is a read-modify-write,
-    so it runs under a lock: a device mesh launches from a thread per
-    device."""
-    mod = sys.modules[module]
+# the launch counters' names, one per kernel, in the order of their records
+KERNEL_NAMES = ("events", "harmonics", "window", "smooth", "topk", "refine",
+                "scan", "conv", "d2s", "extend", "norm")
+_counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def count(kernel: str) -> None:
+    """Add one to ``kernel``'s launch counter.  The increment is a
+    read-modify-write, so it runs under a lock: a device mesh launches from
+    a thread per device."""
     with _count_lock:
-        setattr(mod, counter, getattr(mod, counter) + 1)
-
-
-def counters() -> dict:
-    """kernel name -> (wrapper module, attribute) of its launch counter."""
-    from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
-                                 norm, smooth, topk, window)
-    return {"events": (events, "launches"),
-            "harmonics": (harmonics, "launches"),
-            "window": (window, "launches"),
-            "smooth": (smooth, "launches"),
-            "topk": (topk, "launches"),
-            "refine": (harmonics, "launches_refine"),
-            "scan": (events, "launches_scan"),
-            "conv": (conv, "launches"),
-            "d2s": (d2s, "launches"),
-            "extend": (contour, "launches_extend"),
-            "norm": (norm, "launches")}
+        _counts[kernel] += 1
 
 
 def reset_counts() -> None:
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    with _count_lock:
+        _counts.update(dict.fromkeys(KERNEL_NAMES, 0))
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+    """kernel name -> launches since the counters were last set to 0."""
+    with _count_lock:
+        return dict(_counts)
+
+
+def require_launches(kernels, device, where: str) -> None:
+    """On the card, raise unless every kernel of ``kernels`` launched since
+    the counters were last set to 0 (a CPU tensor takes the plain
+    versions, which count nothing)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return
+    counts = read_counts()
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"{where}: kernels did not launch: {missing} "
+                           f"(counts {counts})")
 
 
 def launch(name: str, device, *args) -> None:

@@ -32,7 +32,6 @@ import torch
 from tpuvc_torch.ops import _build
 
 MAX_CANDS = 32
-launches_extend = 0
 
 
 def _extend_pass(f0: torch.Tensor, cands: torch.Tensor,
@@ -91,5 +90,5 @@ def extend_scans(f0: torch.Tensor, cands: torch.Tensor,
     out = torch.empty_like(f0)
     _build.launch("tpuvc_extend_scans", f0.device, f0.data_ptr(),
                   cands.data_ptr(), out.data_ptr(), b, n, c, allowed)
-    _build.count(__name__, "launches_extend")
+    _build.count("extend")
     return out

@@ -32,8 +32,6 @@ from tpuvc_torch.ops import _build
 LN_EPS = 1e-6          # flax.linen.LayerNorm default
 COUTS = (16, 32, 64, 128, 256)  # the encoder's widths, which it is built for
 
-launches = 0
-
 
 def same_pad(length: int, k: int, s: int) -> tuple[int, int]:
     """Flax ``padding="SAME"`` for a stride-s K-tap convolution: total
@@ -96,5 +94,5 @@ def conv_ln_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   ws.data_ptr(), w_pairs.data_ptr(), bs.data_ptr(),
                   gs.data_ptr(), bts.data_ptr(), out.data_ptr(), n, length,
                   cin, cout, k, stride, float(slope), LN_EPS)
-    _build.count(__name__, "launches")
+    _build.count("conv")
     return out

@@ -27,8 +27,6 @@ from tpuvc_torch.ops.conv import LN_EPS
 WIDTHS = (32, 64, 128)   # the decoder's row widths c, which it is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
-
 
 def d2s_ln_lrelu_plain(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, s: int, slope: float,
@@ -72,5 +70,5 @@ def d2s_ln_lrelu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.launch("tpuvc_d2s_ln_lrelu", x.device, x.data_ptr(), g.data_ptr(),
                   b.data_ptr(), out.data_ptr(), n * length * s, c,
                   _DTYPES[x.dtype], float(slope), float(eps))
-    _build.count(__name__, "launches")
+    _build.count("d2s")
     return out

@@ -45,9 +45,6 @@ import torch
 
 from tpuvc_torch.ops import _build
 
-launches = 0
-launches_scan = 0
-
 
 def n_blocks(t: int, stride: int) -> int:
     return -(-(t - 1) // stride)
@@ -125,7 +122,7 @@ def event_block_pairs(bank: torch.Tensor, stride: int) -> torch.Tensor:
     out = torch.empty((r, 16, nb), dtype=torch.float32, device=bank.device)
     _build.launch("tpuvc_event_block_pairs", bank.device, bank.data_ptr(),
                   out.data_ptr(), r, t, stride, nb)
-    _build.count(__name__, "launches")
+    _build.count("events")
     return out
 
 
@@ -187,5 +184,5 @@ def top2_block_scans(pairs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(pairs)
     _build.launch("tpuvc_top2_block_scans", pairs.device, pairs.data_ptr(),
                   out.data_ptr(), r, nb)
-    _build.count(__name__, "launches_scan")
+    _build.count("scan")
     return out

@@ -49,8 +49,6 @@ from tpuvc_torch.ops import _build
 from tpuvc_torch.ops.arith import rdiv
 
 N_HARM = 6
-launches = 0            # harmonic_dft kernel launches
-launches_refine = 0     # refine_score kernel launches
 
 
 def fold_floor(w: int, fs: float) -> float:
@@ -215,7 +213,7 @@ def harmonic_dft(seg: torch.Tensor, f0: torch.Tensor, fs: int,
                   dim_.data_ptr() if with_if else None,
                   en.data_ptr(), n, k_slots, w, float(fs), int(fold),
                   int(with_if))
-    _build.count(__name__, "launches")
+    _build.count("harmonics")
     return xre, xim, dre, dim_, en
 
 
@@ -297,5 +295,5 @@ def refine_score(seg: torch.Tensor, f0: torch.Tensor, fs: int, floor: float,
     _build.launch("tpuvc_refine_score", seg.device, seg.data_ptr(),
                   f0.data_ptr(), refined.data_ptr(), score.data_ptr(), n,
                   f0.shape[1], w, float(fs), float(floor), float(limit))
-    _build.count(__name__, "launches_refine")
+    _build.count("refine")
     return refined, score

@@ -40,8 +40,6 @@ SLAB_WIDTHS = (16, 32, 64, 128, 256)  # the convolutions' channel counts
 SLAB_BYTES = 96 * 1024                # csrc/norm.cu: kMaxSlabBytes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
-
 
 def norm_lrelu_plain(h: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, slope: float,
@@ -114,5 +112,5 @@ def norm_lrelu(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.launch("tpuvc_norm_lrelu", h.device, x.data_ptr(), g.data_ptr(),
                   b.data_ptr(), out.data_ptr(), n, length, c,
                   _DTYPES[h.dtype], float(slope), float(eps))
-    _build.count(__name__, "launches")
+    _build.count("norm")
     return out

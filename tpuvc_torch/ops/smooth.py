@@ -31,8 +31,6 @@ import torch
 
 from tpuvc_torch.ops import _build
 
-launches = 0
-
 
 def n_taps_half(fs: int, fft_size: int, max_width_hz: float) -> int:
     return int(max_width_hz / (2.0 * (fs / fft_size))) + 2
@@ -103,5 +101,5 @@ def box_smooth(ps: torch.Tensor, width: torch.Tensor, fs: int,
     _build.launch("tpuvc_box_smooth", ps.device, ps.data_ptr(),
                   width.data_ptr(), out.data_ptr(), ps.shape[0], half, k,
                   float(fs / fft_size), float(max_width_hz))
-    _build.count(__name__, "launches")
+    _build.count("smooth")
     return out

@@ -38,8 +38,6 @@ import torch
 from tpuvc_torch.ops import _build
 from tpuvc_torch.ops.arith import rdiv
 
-launches = 0
-
 
 def support(f0: torch.Tensor, fs: int, w: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,5 +97,5 @@ def windowed_frames(seg_raw: torch.Tensor, f0: torch.Tensor, fs: int
                   seg_raw.data_ptr(),
                   f0.data_ptr(), out.data_ptr(), wp.data_ptr(), n, w,
                   float(fs))
-    _build.count(__name__, "launches")
+    _build.count("window")
     return out, wp

@@ -11,8 +11,9 @@ import subprocess
 
 import torch
 
-from tpuvc_torch.bench.common import DIO_KERNELS, require_launches, sync
-from tpuvc_torch.ops._build import reset_counts
+from tpuvc_torch.dsp.constants import DEFAULT_WORLD
+from tpuvc_torch.dsp.world import analysis_kernels
+from tpuvc_torch.ops._build import require_launches, reset_counts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -63,6 +64,11 @@ def write_record(path: str, entries: dict, device: torch.device) -> dict:
     return blob
 
 
+def sync(device: torch.device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def start_launches(device: torch.device) -> None:
     """Set every launch counter to 0 before a study's first analysis."""
     sync(device)
@@ -74,7 +80,7 @@ def require_analysis_launches(device: torch.device, where: str) -> None:
     kernel launched since ``start_launches`` (every study analyses audio
     on the DIO path)."""
     sync(device)
-    require_launches(DIO_KERNELS, device, where)
+    require_launches(analysis_kernels(DEFAULT_WORLD), device, where)
 
 
 def non_finite(rec, where: str = "") -> list[str]:

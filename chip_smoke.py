@@ -51,7 +51,9 @@ non-zero and prints no ``"ok"`` line):
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
-               kernel of the path, K11 included, must have launched.
+               kernel of the path, K11 included, must have launched, and
+               each model call must run serving_convs(path) convolutions
+               channels-last (Conv._nhwc: 10 default, 5 fused).
                The default path serves the same requests again with
                float32 and pcm12 transfer: decoded on the host, ulaw8
                and pcm12 against float32 clipped to [-1, 1] hold SNR
@@ -84,8 +86,9 @@ non-zero and prints no ``"ok"`` line):
                launched: training takes the default route); one VAW-GAN
                step on the card and on the CPU from the same seeded
                parameters, batch and noise (loss dict and parameters
-               agree); a VAE resident run of 200 steps whose loss falls;
-               step times and peak memory with cuDNN's TF32 on and off
+               agree; no convolution channels-last); a VAE resident run
+               of 200 steps whose loss falls; step times and peak memory
+               with cuDNN's TF32 on and off
                (informational; ``--profile`` adds a profiled VAW-GAN and
                VAE step in each setting).  Its run directory and corpus
                (whose 10 speakers also get 2 test utterances each, parallel
@@ -228,7 +231,7 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
                 "split_tf32_kernel", "d2s_ln_lrelu_kernel",
                 "extend_scans_kernel", "norm_lrelu_rows_kernel",
-                "norm_lrelu_slab_kernel", "norm_lrelu_any_kernel")
+                "norm_lrelu_any_kernel")
 
 # path -> (WorldConfig fields, rate batch, Architecture fields); the kernels
 # each path launches follow from its fields (``path_kernels``)
@@ -270,6 +273,16 @@ def path_kernels(path: str, model: bool = True) -> tuple:
     from tpuvc_torch.models.vae import serving_kernels
     return analysis_kernels(path_cfg(path)) + (
         serving_kernels(path_arch(path)) if model else ())
+
+
+def serving_convs(path: str) -> int:
+    """The convolutions one serving encode + decode of the path's model
+    runs channels-last (``models/vae.py:Conv._nhwc``): the decoder's, and
+    the encoder's unless K8 runs them (10 on the default architecture, 5
+    fused)."""
+    arch = path_arch(path)
+    return len(arch.generator.kernel) + (
+        0 if arch.conv_impl == "pallas" else len(arch.encoder.kernel))
 
 
 def unlaunched(launches: dict, path: str = "default",
@@ -513,8 +526,8 @@ def capture_model_inputs(state, sp, dev) -> dict:
 def capture_norm_inputs(state, sp, dev) -> list:
     """[(args, kwargs)] of K11's sites, NORM_SITES: the LayerNorm.lrelu
     calls of one encode + decode of the default model (bf16 compute) on
-    the frames of ``sp``, each h as the model gives it (a convolution's
-    transposed output where it is one)."""
+    the frames of ``sp``, each h as the model gives it (contiguous rows:
+    the convolutions write their outputs channels-last)."""
     import torch
     from tpuvc_torch.models import vae
     model = path_model("default", state, dev)
@@ -800,7 +813,7 @@ def conv1d_f32(tf32: bool):
 
 def ln_chain(h, gamma, beta, slope):
     """F.layer_norm and F.leaky_relu in h's dtype: what the model ran at a
-    K11 site before K11 (F.layer_norm copies a transposed h first)."""
+    K11 site before K11."""
     import torch.nn.functional as F
     from tpuvc_torch.ops.conv import LN_EPS
     return F.leaky_relu(F.layer_norm(h, h.shape[-1:], gamma.to(h.dtype),
@@ -996,6 +1009,7 @@ def phase_serve(path: str, dev, state,
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
                                               synthesis_noise)
+    from tpuvc_torch.models import vae
     from tpuvc_torch.ops._build import read_counts, reset_counts
     cfg = path_cfg(path)
     model = path_model(path, state, dev)
@@ -1009,12 +1023,22 @@ def phase_serve(path: str, dev, state,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     reset_counts()
+    decodes: list = []
+    nhwc: list = []
     t0 = time.perf_counter()
-    ys = conv.convert_batch(xs, [SPEAKERS[i] for i in src],
-                            [SPEAKERS[i] for i in trg], seed=0)
+    with spy(model, "decode", decodes), spy(vae.Conv, "_nhwc", nhwc):
+        ys = conv.convert_batch(xs, [SPEAKERS[i] for i in src],
+                                [SPEAKERS[i] for i in trg], seed=0)
     sync()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    n_nhwc = len(nhwc)
+    del nhwc                    # the spy held the activations
+    if not decodes or n_nhwc != serving_convs(path) * len(decodes):
+        raise AssertionError(f"{path}: {n_nhwc} channels-last "
+                             f"convolutions over {len(decodes)} model calls,"
+                             f" where {serving_convs(path)} a call are "
+                             "expected")
     for x, y in zip(xs, ys):
         rms_db = 10 * math.log10(float(np.mean(y.astype(np.float64) ** 2))
                                  + 1e-30)
@@ -1029,7 +1053,8 @@ def phase_serve(path: str, dev, state,
         raise AssertionError(f"{path} path did not launch: {missing}")
     say(f"[4 serve] {path}: {len(xs)} requests ({sum(durs):.1f} s of audio,"
         f" {', '.join(f'{d:g}' for d in durs)} s) converted in {wall:.3f} s;"
-        f" kernel launches {launches}; output RMS "
+        f" kernel launches {launches}; {n_nhwc} channels-last "
+        f"convolutions over {len(decodes)} model calls; output RMS "
         + ", ".join(f"{10 * math.log10(float(np.mean(y ** 2))):.1f}"
                     for y in ys) + " dBFS")
     transfer = None
@@ -1366,6 +1391,7 @@ def phase_train(dev, tmp: str, arch_path: str = TRAIN_ARCH,
     from tpuvc_torch.data.dataset import FrameDataset
     from tpuvc_torch.data.normalizer import Tanhize
     from tpuvc_torch.io import corpus as corpus_io
+    from tpuvc_torch.models import vae as vae_model
     from tpuvc_torch.ops._build import read_counts, reset_counts
     from tpuvc_torch.train import steps as steps_lib
     from tpuvc_torch.train import trainer as trainer_lib
@@ -1480,18 +1506,25 @@ def phase_train(dev, tmp: str, arch_path: str = TRAIN_ARCH,
     noise = steps_lib.vawgan_noise(steps_lib.step_generator(0, 0, dev),
                                    b, arch)
     runs = {}
+    nhwc: list = []
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
         st = steps_lib.init_vawgan_state(arch, 0, d)
         seen_g, seen_d = record_grads(st.opt_g), record_grads(st.opt_d)
-        m = steps_lib.vawgan_step(
-            st, *(v.to(d) for v in batch),
-            steps_lib.VAWGANNoise(noise.z_crit.to(d), noise.gp.to(d),
-                                  noise.z_gen.to(d)))
+        with spy(vae_model.Conv, "_nhwc", nhwc):
+            m = steps_lib.vawgan_step(
+                st, *(v.to(d) for v in batch),
+                steps_lib.VAWGANNoise(noise.z_crit.to(d), noise.gp.to(d),
+                                      noise.z_gen.to(d)))
         runs[name] = dict(m={k: float(v) for k, v in m.items()},
                           gen=dict(st.gen.named_parameters()),
                           critic=dict(st.critic.named_parameters()),
                           grads_g=named_grads(st.gen, seen_g),
                           grads_d=named_grads(st.critic, seen_d))
+    # training keeps the transposing convolutions (models/vae.py:Conv)
+    rec["step_nhwc_convs"] = len(nhwc)
+    if nhwc:
+        raise AssertionError(f"the VAW-GAN steps ran {len(nhwc)} "
+                             "convolutions channels-last")
     card, cpu = runs["card"], runs["cpu"]
     rel = {k: abs(card["m"][k] - cpu["m"][k]) / max(abs(cpu["m"][k]),
                                                     1e-30)

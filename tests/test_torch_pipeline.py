@@ -440,9 +440,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                for r in kern["extend"])
     assert kern["conv"][4]["bound_by"] == "operations"
     assert kern["d2s"][0]["bound_by"] == "bytes"
-    # K11 at the default model's ten sites: the encoder's five (a
-    # convolution's transposed output each), the dense_norm and the
-    # decoder's four steps, every one bound by its bytes
+    # K11 at the default model's ten sites: the encoder's five, the
+    # dense_norm and the decoder's four steps, every one bound by its bytes
     assert [r["site"] for r in kern["norm"]] == list(chip_smoke.NORM_SITES)
     assert [r["shape"][0][-1] for r in kern["norm"]] == [
         16, 32, 64, 128, 256, 2432, 128, 64, 32, 16]

@@ -701,6 +701,7 @@ def test_phase6_rehearses_on_cpu(tmp_path, monkeypatch):
     assert rec["ckpts"] == ["2.pt", "4.pt"]
     assert rec["logged_steps"] == [2, 4]
     assert rec["card_vs_cpu"]["max_rel_err"] == 0.0
+    assert rec["step_nhwc_convs"] == 0
     assert rec["vae"]["last"] < rec["vae"]["first"]
     assert all(v[tag] > 0 for k, v in rec["times"].items()
                if k.endswith("_ms") for tag in ("tf32_on", "tf32_off"))

@@ -16,24 +16,14 @@
 // LeakyReLU h > 0 ? h : h*slope; the output is rounded once to x's dtype
 // (float32 or bfloat16, round to nearest even).
 //
-// Three routes in, [rows, C] contiguous out:
-// - rows: x is [rows, C] contiguous (the dense layer's output, the
-//   default decoder's depth-to-space copies).  A grid of resident CTAs
-//   strides over the rows; each lane loads its vectors straight from
-//   device memory.
-// - slab: x is [n, L, C] as the transpose of a contiguous [n, C, L] (a
-//   convolution's output, Conv.forward's y.transpose(1, 2)).  Frame f's
-//   [C, L] slab is one contiguous run in x and its [L, C] output one
-//   contiguous run in out, so a CTA copies the slabs of a few consecutive
-//   frames into shared memory with 16-byte cp.async copies, then reads
-//   each row's C values down the slab's columns there and writes the rows
-//   as vectors: both device-memory sides are coalesced and no transposed
-//   copy is made.  A slab takes up to 96 KB (float32 513 x 32 is 65 KB),
-//   past the 48 KB of dynamic shared memory a launch has without opt-in.
+// x and out are [rows, C] contiguous: the model's activations lie
+// channels-last (its convolutions write them so, and its depth-to-space
+// is a view).
+// - the published widths: a grid of resident CTAs strides over the rows;
+//   each lane loads its vectors straight from device memory.
 // - any other width (an architecture other than the published one): a
-//   warp a row with C read at run time, contiguous rows only; the row is
-//   read three times (sum, squared deviations, output), the last two from
-//   cache.
+//   warp a row with C read at run time; the row is read three times (sum,
+//   squared deviations, output), the last two from cache.
 //
 // Bound: device-memory bytes, one read and one write of the activations
 // (2 x 2 B per value in bfloat16); about ten operations per value.
@@ -45,9 +35,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlabValues = 8192;        // a slab CTA's target size
-constexpr int kMaxSlabBytes = 96 * 1024; // ops/norm.py: SLAB_BYTES
-constexpr int kDefaultSmemBytes = 48 * 1024;  // dynamic, without opt-in
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -208,62 +195,6 @@ norm_lrelu_rows_kernel(const T* __restrict__ x,
     }
 }
 
-// 16 bytes global -> shared, asynchronously
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
-}
-
-template <typename T, int C, int VPL>
-__global__ void __launch_bounds__(kThreads)
-norm_lrelu_slab_kernel(const T* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta, T* __restrict__ out,
-                       long long frames, int length, int per_cta, float slope,
-                       float eps) {
-    using R = Row<C, VPL>;
-    extern __shared__ __align__(16) unsigned char slab_bytes[];
-    const T* slab = reinterpret_cast<const T*>(slab_bytes);
-    const long long f0 = (long long)blockIdx.x * per_cta;
-    const int nf = (int)min((long long)per_cta, frames - f0);
-    const int per_frame = C * length;
-    // the CTA's frames are one contiguous run of nf * C * length values;
-    // C * sizeof(T) is a multiple of 16, so the run is whole 16-byte pieces
-    const char* src = reinterpret_cast<const char*>(x + f0 * per_frame);
-    const int pieces = nf * per_frame * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < pieces; i += kThreads)
-        cp_async16(slab_bytes + 16 * i, src + 16 * i);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-
-    const int lane = threadIdx.x & 31;
-    const int j = lane % R::LPR;
-    const Affine<T, R> af(gamma, beta, j);
-    const int rows = nf * length;
-    T* dst0 = out + f0 * length * C;
-    for (int r0 = (threadIdx.x >> 5) * R::RPW; r0 < rows;
-         r0 += kWarps * R::RPW) {
-        const int r = r0 + lane / R::LPR;
-        const bool ok = r < rows;
-        float v[R::N];
-        if (ok) {
-            const int f = r / length;
-            const T* col0 = slab + f * per_frame + (r - f * length);
-#pragma unroll
-            for (int q = 0; q < R::NV; ++q)
-#pragma unroll
-                for (int e = 0; e < VPL; ++e)
-                    v[q * VPL + e] = widen(col0[(R::col(q, j) + e) * length]);
-        } else {
-#pragma unroll
-            for (int i = 0; i < R::N; ++i) v[i] = 0.0f;
-        }
-        norm_store<T, R>(v, af, dst0 + (long long)r * C, ok, slope, eps);
-    }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 norm_lrelu_any_kernel(const T* __restrict__ x,
@@ -336,94 +267,51 @@ cudaError_t launch_any(const void* x, const float* g, const float* b,
     return cudaGetLastError();
 }
 
-template <typename T, int C, int VPL>
-cudaError_t launch_slab(const void* x, const float* g, const float* b,
-                        void* out, long long frames, int length, float slope,
-                        float eps, cudaStream_t stream) {
-    const long long frame_bytes = (long long)C * length * sizeof(T);
-    if (frame_bytes > kMaxSlabBytes) return cudaErrorInvalidValue;
-    int per_cta = kSlabValues / (C * length);
-    if (per_cta < 1) per_cta = 1;
-    const long long ctas = (frames + per_cta - 1) / per_cta;
-    if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-    if (ctas == 0) return cudaSuccess;
-    auto kern = norm_lrelu_slab_kernel<T, C, VPL>;
-    const int smem = (int)(per_cta * frame_bytes);
-    if (smem > kDefaultSmemBytes) {
-        // the opt-in above 48 KB belongs to the current device's context
-        // (csrc/conv.cu sets its own the same way): set it on each launch
-        // that needs it
-        const cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-    }
-    kern<<<(unsigned)ctas, kThreads, (size_t)smem, stream>>>(
-        static_cast<const T*>(x), g, b, static_cast<T*>(out), frames, length,
-        per_cta, slope, eps);
-    return cudaGetLastError();
-}
-
-template <typename T, int C>
-cudaError_t narrow_rows(const void* x, const float* g, const float* b,
-                        void* out, long long n, int length, float slope,
-                        float eps, cudaStream_t stream) {
-    constexpr int V = 16 / sizeof(T);       // 16-byte vectors
-    if (length == 0)
-        return launch_rows<T, C, V>(x, g, b, out, n, slope, eps, stream);
-    return launch_slab<T, C, V>(x, g, b, out, n, length, slope, eps, stream);
-}
-
 template <typename T>
 cudaError_t dispatch(const void* x, const float* g, const float* b,
-                     void* out, long long n, int length, int c, float slope,
+                     void* out, long long rows, int c, float slope,
                      float eps, cudaStream_t stream) {
+    constexpr int V = 16 / sizeof(T);       // 16-byte vectors
     switch (c) {
         case 16:
-            return narrow_rows<T, 16>(x, g, b, out, n, length, slope, eps,
-                                      stream);
+            return launch_rows<T, 16, V>(x, g, b, out, rows, slope, eps,
+                                         stream);
         case 32:
-            return narrow_rows<T, 32>(x, g, b, out, n, length, slope, eps,
-                                      stream);
+            return launch_rows<T, 32, V>(x, g, b, out, rows, slope, eps,
+                                         stream);
         case 64:
-            return narrow_rows<T, 64>(x, g, b, out, n, length, slope, eps,
-                                      stream);
+            return launch_rows<T, 64, V>(x, g, b, out, rows, slope, eps,
+                                         stream);
         case 128:
-            return narrow_rows<T, 128>(x, g, b, out, n, length, slope, eps,
-                                       stream);
+            return launch_rows<T, 128, V>(x, g, b, out, rows, slope, eps,
+                                          stream);
         case 256:
-            return narrow_rows<T, 256>(x, g, b, out, n, length, slope, eps,
-                                       stream);
-        case 2432:   // the decoder's dense_norm: 19 x 128, contiguous rows
-            if (length != 0) return cudaErrorInvalidValue;
-            return launch_rows<T, 2432, 4>(x, g, b, out, n, slope, eps,
+            return launch_rows<T, 256, V>(x, g, b, out, rows, slope, eps,
+                                          stream);
+        case 2432:   // the decoder's dense_norm: 19 x 128
+            return launch_rows<T, 2432, 4>(x, g, b, out, rows, slope, eps,
                                            stream);
-        default:     // another architecture's width: contiguous rows
-            if (length != 0) return cudaErrorInvalidValue;
-            return launch_any<T>(x, g, b, out, n, c, slope, eps, stream);
+        default:     // another architecture's width
+            return launch_any<T>(x, g, b, out, rows, c, slope, eps, stream);
     }
 }
 
 }  // namespace
 
-// length == 0: x holds n contiguous rows of c values (any c >= 1);
-// length > 0: x holds n frames, each a contiguous [c, length] slab (the
-// storage of a [n, length, c] transpose view; c in 16..256, a power of
-// two, and the slab at most kMaxSlabBytes).  out is [n * max(length, 1),
-// c] contiguous.
+// x and out hold rows contiguous rows of c values (any c >= 1).
 // dtype: 0 = float32, 1 = bfloat16 (x and out); gamma and beta are float32
 // [c], 16-byte aligned; x and out 16-byte aligned.
 extern "C" int tpuvc_norm_lrelu(const void* x, const void* g, const void* b,
-                                void* out, long long n, int length, int c,
-                                int dtype, float slope, float eps,
-                                cudaStream_t stream) {
-    if (n < 0 || length < 0 || c < 1) return (int)cudaErrorInvalidValue;
+                                void* out, long long rows, int c, int dtype,
+                                float slope, float eps, cudaStream_t stream) {
+    if (rows < 0 || c < 1) return (int)cudaErrorInvalidValue;
     const float* gf = static_cast<const float*>(g);
     const float* bf = static_cast<const float*>(b);
     if (dtype == 0)
-        return (int)dispatch<float>(x, gf, bf, out, n, length, c, slope, eps,
+        return (int)dispatch<float>(x, gf, bf, out, rows, c, slope, eps,
                                     stream);
     if (dtype == 1)
-        return (int)dispatch<__nv_bfloat16>(x, gf, bf, out, n, length, c,
-                                            slope, eps, stream);
+        return (int)dispatch<__nv_bfloat16>(x, gf, bf, out, rows, c, slope,
+                                            eps, stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -3,11 +3,22 @@
 Port of ``tpuvc/models/vae.py`` (``ConvStack``, ``Encoder``, ``Decoder``,
 ``Critic``, ``CVAE``, ``VAWGAN``, ``make_model``).  Activations stay
 channels-last [B, L, C] between layers, as in the Flax model, so the
-encoder's flatten and the decoder's depth-to-space are the same reshapes;
-each convolution transposes to PyTorch's [B, C, L] around ``F.conv1d``.
+encoder's flatten and the decoder's depth-to-space are the same reshapes.
 Flax conventions kept: ``padding="SAME"`` (total (out-1)*s + k - L, low
 half first), LayerNorm epsilon 1e-6.  Parameters are float32; ``dtype``
 (bfloat16 on the card) is the compute type.
+
+Each convolution reads and writes the activations where they lie: where
+no autograd graph runs through it and the module is not in train mode
+(serving, on any device), it is one ``F.conv2d`` over h [B, L, Cin] viewed
+as a channels-last [B, Cin, 1, L], SAME padding passed to the call where
+it is symmetric (one copy of h padded along L where it is not), its
+channels-last output viewed back as a contiguous [B, Lout, Cout]: no
+layout copy on either side, and the depth-to-space reshape after it a
+view.  Everywhere else (training's passes, the critic's updates) it
+transposes to [B, C, L] around ``F.conv1d``: training's card-against-CPU
+rule (``chip_smoke.py`` phase 6) sits inside float32 conditioning and
+fails on the channels-last route.
 
 ``VAWGAN`` (and ``CVAE``) hold the encoder and decoder only, the generator
 half the converter serves; the ``Critic`` is a module of its own with its
@@ -74,11 +85,27 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.training and not norm_op.needs_graph(h, self.weight,
+                                                         self.bias):
+            return self._nhwc(h)
         x = h.transpose(1, 2)
         x = F.pad(x, same_pad(x.shape[-1], self.k, self.stride))
         y = F.conv1d(x, self.weight.to(h.dtype), self.bias.to(h.dtype),
                      stride=self.stride)
         return y.transpose(1, 2)
+
+    def _nhwc(self, h: torch.Tensor) -> torch.Tensor:
+        """The serving route: h [B, L, Cin] -> [B, Lout, Cout] contiguous
+        (for a contiguous h), one channels-last convolution."""
+        lo, hi = same_pad(h.shape[1], self.k, self.stride)
+        if lo != hi:
+            h, lo = F.pad(h, (0, 0, lo, hi)), 0
+        x = h.unsqueeze(1).permute(0, 3, 1, 2)        # [B, Cin, 1, L], NHWC
+        w = self.weight[:, :, None, :].to(h.dtype,
+                                          memory_format=torch.channels_last)
+        y = F.conv2d(x, w, self.bias.to(h.dtype), stride=(1, self.stride),
+                     padding=(0, lo))
+        return y.permute(0, 2, 3, 1).squeeze(1)
 
 
 class LayerNorm(nn.Module):

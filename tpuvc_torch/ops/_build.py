@@ -48,7 +48,7 @@ SIGNATURES = {
                             _I, _F, _F, _P),
     "tpuvc_d2s_ln_lrelu": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     "tpuvc_extend_scans": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "tpuvc_norm_lrelu": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P),
+    "tpuvc_norm_lrelu": (_P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -15,13 +15,12 @@ other).
 
 CUDA kernel (``csrc/norm.cu``): many rows a CTA, a row held by C/8 lanes
 (bfloat16) or C/4 (float32), at most a warp, with 16-byte vectors,
-reduced by shuffles, at the published architecture's widths (SLAB_WIDTHS
-and the 2432-wide ``dense_norm``, a warp a row); any other width a warp a
-row with C read at run time.  A convolution's output, the transpose view
-of a contiguous [B, C, L], is read where it lies: each frame's [C, L] slab
-goes through shared memory (up to SLAB_BYTES), so no transposed copy is
-made.  Bound by device-memory bytes (one read and one write of the
-activations).
+reduced by shuffles, at the published architecture's widths (16-256 and
+the 2432-wide ``dense_norm``, a warp a row); any other width a warp a row
+with C read at run time.  The kernel reads contiguous rows: every site of
+the model hands it them (the convolutions write channels-last), and any
+other h is made contiguous first.  Bound by device-memory bytes (one read
+and one write of the activations).
 
 The plain version is ``F.layer_norm`` in float32 and ``F.leaky_relu``,
 with the same casts; it matches the model's two calls in h's dtype within
@@ -36,8 +35,6 @@ import torch.nn.functional as F
 from tpuvc_torch.ops import _build
 from tpuvc_torch.ops.conv import LN_EPS
 
-SLAB_WIDTHS = (16, 32, 64, 128, 256)  # the convolutions' channel counts
-SLAB_BYTES = 96 * 1024                # csrc/norm.cu: kMaxSlabBytes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,21 +61,6 @@ def engages(h: torch.Tensor, *params: torch.Tensor) -> bool:
     return h.device.type == "cuda" and not needs_graph(h, *params)
 
 
-def layout(h: torch.Tensor) -> str:
-    """How the kernel reads h: "rows" (contiguous), "slab" (h [B, L, C] is
-    the transpose of a contiguous [B, C, L] whose [C, L] slab fits in
-    shared memory) or "copy" (anything else: made contiguous first)."""
-    if h.is_contiguous():
-        return "rows"
-    if h.dim() == 3:
-        b, length, c = h.shape
-        if (c in SLAB_WIDTHS and h.stride(1) == 1 and h.stride(2) == length
-                and (b == 1 or h.stride(0) == c * length)
-                and c * length * h.element_size() <= SLAB_BYTES):
-            return "slab"
-    return "copy"
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t, or a fresh copy of it (same strides) where it does not start on
     16 bytes."""
@@ -101,16 +83,12 @@ def norm_lrelu(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return norm_lrelu_plain(h, gamma, beta, slope, eps)
     if h.device.type != "cuda":
         raise ValueError("norm kernel needs a CUDA tensor")
-    how = layout(h)
-    if how == "slab":
-        x, n, length = _aligned(h), h.shape[0], h.shape[1]
-    else:
-        x, n, length = _aligned(h.contiguous()), h.numel() // c, 0
+    x = _aligned(h.contiguous())
     g, b = (_aligned(t.to(device=h.device, dtype=torch.float32).contiguous())
             for t in (gamma, beta))
     out = torch.empty(h.shape, dtype=h.dtype, device=h.device)
     _build.launch("tpuvc_norm_lrelu", h.device, x.data_ptr(), g.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), n, length, c,
+                  b.data_ptr(), out.data_ptr(), h.numel() // c, c,
                   _DTYPES[h.dtype], float(slope), float(eps))
     _build.count("norm")
     return out

@@ -35,7 +35,11 @@ JAX package's ``jax.named_scope``s: ``hv_band_bank`` (1),
 ``hv_event_tracks`` (2), ``hv_merge`` (the channel candidates and 3),
 ``hv_refine`` (4) and ``hv_contour`` (5), so a profile attributes its
 time per stage; outside a profile each costs one query of whether a
-profiler records.
+profiler records.  Each of the six blocked-recurrence calls of a Harvest
+call (two jump removals in ``hv_contour``, two fills and two biquads in
+its smoothing) carries a span ``hv_recur`` of its own, nested in
+``hv_contour`` and with no JAX counterpart: it splits the contour's
+host-launched loops from the contour kernel.
 """
 
 from __future__ import annotations
@@ -296,10 +300,14 @@ def _smooth(f0: torch.Tensor) -> torch.Tensor:
     filled with the upcoming segment's head (backward fill), the backward
     pass with the previous output's tail (forward fill)."""
     v = f0 > 0.0
-    bfill = _ffill(f0.flip(-1), v.flip(-1)).flip(-1)
-    yf = _biquad(torch.where(v, f0, bfill))
-    xb = torch.where(v, yf, _ffill(yf, v))
-    yb = _biquad(xb.flip(-1)).flip(-1)
+    with span("hv_recur"):
+        bfill = _ffill(f0.flip(-1), v.flip(-1)).flip(-1)
+    with span("hv_recur"):
+        yf = _biquad(torch.where(v, f0, bfill))
+    with span("hv_recur"):
+        xb = torch.where(v, yf, _ffill(yf, v))
+    with span("hv_recur"):
+        yb = _biquad(xb.flip(-1)).flip(-1)
     return torch.where(v, yb, 0.0)
 
 
@@ -366,10 +374,12 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
         f0 = torch.where(torch.gather(scores, -1, best)[..., 0] > 0.0, f0,
                          0.0)
         f0 = _guided_reselect(f0, refined, scores)
-        f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
+        with span("hv_recur"):
+            f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
         f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
         f0 = extend_scans(f0, refined, HARVEST_EXTENSION_ALLOWED)
-        f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
+        with span("hv_recur"):
+            f0 = _fix_step1_scan(f0, HARVEST_STEP1_ALLOWED)
         f0 = _fix_step_remove_short_runs(f0, HARVEST_VOICE_RANGE_MIN)
         f0 = _smooth(f0)
     step = (hop * 1000) // fs                                # ms per frame

@@ -24,10 +24,11 @@ non-zero and prints no ``"ok"`` line):
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the eleven CUDA kernels (tpuvc_torch/csrc: the
+  2. build   — compile the twelve CUDA kernels (tpuvc_torch/csrc: the
                nine of the JAX package's Pallas kernels, the contour
-               kernel, which replaces a jax.lax.scan, and the model's
-               LayerNorm + LeakyReLU, K11, which XLA fuses) with nvcc
+               kernel and Harvest's channel merge, K12, which replace
+               jax.lax.scans, and the model's LayerNorm + LeakyReLU, K11,
+               which XLA fuses) with nvcc
                into build/tpuvc_torch/ and the host-IO library
                (tpuvc_torch/native/io.cc) with g++ into
                build/tpuvc_torch_host/, both through
@@ -100,8 +101,8 @@ non-zero and prints no ``"ok"`` line):
                DIO path's seven kernels and K11 must launch; every file
                finite and not silent; wall time and audio s/s), a single
                pair with --f0-method harvest --harvest-decim 2
-               --save_spectrogram (K1, K7, K6, the contour kernel, K3, K4,
-               K5, K11 must launch; a PNG only where matplotlib is
+               --save_spectrogram (K1, K7, K12, K6, the contour kernel, K3,
+               K4, K5, K11 must launch; a PNG only where matplotlib is
                installed), a single pair with --streaming (K11 too);
                load_converter on the card and on the CPU from the same
                checkpoint (waveform SNR >= 30 dB, the same noise); and
@@ -218,6 +219,8 @@ KERNELS = [
      "tpuvc/ops/pallas_d2s.py:65", "fused"),
     ("extend", "tpuvc_torch/csrc/contour.cu",
      "none (a jax.lax.scan, tpuvc/dsp/dio.py:363)", "default"),
+    ("merge", "tpuvc_torch/csrc/merge.cu",
+     "none (a jax.lax.scan, tpuvc/dsp/harvest.py:86)", "harvest"),
     ("norm", "tpuvc_torch/csrc/norm.cu",
      "none (XLA fuses flax.linen.LayerNorm and leaky_relu)", "default"),
 ]
@@ -231,7 +234,7 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
                 "split_tf32_kernel", "d2s_ln_lrelu_kernel",
                 "extend_scans_kernel", "norm_lrelu_rows_kernel",
-                "norm_lrelu_any_kernel")
+                "norm_lrelu_any_kernel", "merge_channels_kernel")
 
 # path -> (WorldConfig fields, rate batch, Architecture fields); the kernels
 # each path launches follow from its fields (``path_kernels``)
@@ -459,7 +462,8 @@ def capture_inputs(dev, dur_s: float, batches: dict):
              (harvest, "refine_score", "refine"),
              (dio, "top2_block_scans", "scan"),
              (dio, "extend_scans", "extend"),
-             (harvest, "extend_scans", "extend")]
+             (harvest, "extend_scans", "extend"),
+             (harvest, "merge_channels", "merge")]
     rng = np.random.default_rng(2)
     out, sp = {}, None
     for path, batch in batches.items():
@@ -568,6 +572,13 @@ OPS_WINDOW_LANE = 16
 OPS_SCAN_PAIR = 3
 OPS_LN_VALUE = 8
 OPS_EXTEND_CAND = 4
+# K12 per channel and frame: the mean (3 adds, a multiply), the deviation
+# (4 subtractions, 4 absolute values, 3 maxima, a clamp, a division), 9
+# gate comparisons and their 2 band multiplies, the candidate's select,
+# the merge test (2 comparisons, a subtraction, an absolute value, a
+# clamp, a multiply, a comparison), the closing mean (a clamp, a
+# division) and the run's 2 additions and 4 selects
+OPS_MERGE_CHANNEL = 44
 WINDOW_ONE_PASS_QUADS = 32 * 4     # csrc/window.cu: 32 lanes x kSlots
 
 
@@ -688,6 +699,13 @@ def bound_of(name: str, args, out) -> dict:
         x, c = args[0], args[1].shape[0]
         return _bound(2 * x.element_size() * x.numel() + f4 * 2 * c,
                       OPS_LN_VALUE * x.numel())
+    if name == "merge":
+        # every track read once, the channels' frequencies, the [B, N, K]
+        # candidates written once
+        tracks = args[0]
+        b, c, _, n = tracks.shape
+        return _bound(f4 * (tracks.numel() + c + out.numel()),
+                      OPS_MERGE_CHANNEL * b * c * n)
     if name == "extend":
         # bound by the latency of the 2N steps each row walks one after
         # another, which has no time of its own here; the bytes and
@@ -717,10 +735,11 @@ def compare(name: str, got, ref) -> tuple[float, str]:
     """Hold a kernel's outputs against its plain version's; returns the
     max abs error and the tolerance applied."""
     import torch
-    if name in ("events", "topk", "scan", "smooth", "extend"):
+    if name in ("events", "topk", "scan", "smooth", "extend", "merge"):
         # selections, and sums added in the same order (smooth: the same
         # separately rounded products and sums, zero-weight taps skipped;
-        # extend: the same IEEE divisions and comparisons): bit-equal
+        # extend, merge: the same IEEE operations and comparisons in the
+        # same order): bit-equal
         if not torch.equal(got, ref):
             raise AssertionError(f"{name}: kernel is not bit-equal to its "
                                  "plain version")
@@ -847,7 +866,7 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     import torch
     import torch.nn.functional as F
     from tpuvc_torch.ops import (contour, conv, d2s, events, harmonics,
-                                 norm, smooth, topk, window)
+                                 merge, norm, smooth, topk, window)
     batches = batches or {p: PATHS[p][1]
                           for p in ("default", "harvest", "harvest_decim2")}
     calls, sp = capture_inputs(dev, dur_s, batches)
@@ -867,7 +886,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
            "conv": (conv.conv_ln_lrelu, conv.conv_ln_lrelu_plain),
            "d2s": (d2s.d2s_ln_lrelu, d2s.d2s_ln_lrelu_plain),
            "extend": (contour.extend_scans, contour.extend_scans_plain),
-           "norm": (norm.norm_lrelu, norm.norm_lrelu_plain)}
+           "norm": (norm.norm_lrelu, norm.norm_lrelu_plain),
+           "merge": (merge.merge_channels, merge.merge_channels_plain)}
     def default_layer(i):
         """Encoder layer i as the default architecture runs it (bf16
         compute: cuDNN conv, LayerNorm, LeakyReLU)."""
@@ -926,6 +946,8 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
           enumerate(m["d2s"])],
         ("extend", "DIO contour, both passes", d["extend"][0]),
         ("extend", "Harvest contour, both passes", h["extend"][0]),
+        ("merge", "Harvest channel merge", h["merge"][0]),
+        ("merge", "Harvest decim 2 channel merge", h2["merge"][0]),
     ]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     res: dict = {}

@@ -25,7 +25,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 DIO = ("events", "scan", "extend", "harmonics", "window", "smooth", "topk")
-HARVEST = ("events", "scan", "refine", "extend", "window", "smooth", "topk")
+HARVEST = ("events", "scan", "merge", "refine", "extend", "window", "smooth",
+           "topk")
 # the kernels of each path as chip_smoke.py listed them by hand
 HAND_KEPT = {
     "default": DIO + ("norm",),

@@ -411,7 +411,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     K7 and K6 sites in phase 3), the fused path's streaming and
     cli.analyze drives included (every wrapper takes its plain version, so
     nothing launches and the kernel/plain errors are exactly 0), and its
-    JSON record names all eleven kernels with every key."""
+    JSON record names all twelve kernels with every key."""
     import chip_smoke
     from tpuvc_torch.ops._build import KERNEL_NAMES
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: float("nan"))
@@ -438,6 +438,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert [r["shape"][1][2] for r in kern["extend"]] == [7, 10]
     assert all(r["dependent_steps"] == 2 * r["shape"][0][1]
                for r in kern["extend"])
+    # K12 on Harvest's 152 channels and the decim-2 bank's 76, bound by
+    # the bytes of the tracks
+    assert [r["shape"][0][1] for r in kern["merge"]] == [152, 76]
+    assert all(r["bound_by"] == "bytes" for r in kern["merge"])
     assert kern["conv"][4]["bound_by"] == "operations"
     assert kern["d2s"][0]["bound_by"] == "bytes"
     # K11 at the default model's ten sites: the encoder's five, the

@@ -12,7 +12,8 @@ Interspeech 2017):
      (``dio._bank_tracks``: the event kernel at stride fs_d/1000 = 8); a
      channel proposes its track mean where the four agree;
   3. adjacent channels proposing the same f0 merge into at most 10
-     candidates per frame (a loop over the channel axis);
+     candidates per frame (``ops/merge.py:merge_channels``, the channel
+     candidates and their merge in one launch of K12 on the card);
   4. each candidate is refined by the instantaneous-frequency method on
      the original-rate signal and scored by harmonic concentration, both
      phases in one kernel (``ops/harmonics.py:refine_score``, the JAX
@@ -51,14 +52,11 @@ import numpy as np
 import torch
 
 from tpuvc_torch.dsp import filters
-from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, HARVEST_BAND_GATE_HIGH,
-                                       HARVEST_CEIL_ADJUST,
+from tpuvc_torch.dsp.constants import (DEFAULT_WORLD, HARVEST_CEIL_ADJUST,
                                        HARVEST_CHANNELS_IN_OCTAVE,
-                                       HARVEST_CONSISTENCY,
                                        HARVEST_EXTENSION_ALLOWED,
                                        HARVEST_FLOOR_ADJUST,
                                        HARVEST_MAX_CANDIDATES,
-                                       HARVEST_MERGE_TOLERANCE,
                                        HARVEST_REFINE_LIMIT,
                                        HARVEST_RESELECT_HALF,
                                        HARVEST_RESELECT_REL,
@@ -72,6 +70,7 @@ from tpuvc_torch.dsp.dio import _bank_tracks, _fix_step_remove_short_runs
 from tpuvc_torch.ops.contour import extend_scans
 from tpuvc_torch.ops.framing import frame_signal
 from tpuvc_torch.ops.harmonics import refine_score
+from tpuvc_torch.ops.merge import merge_channels
 from tpuvc_torch.utils.profiling import span
 
 _K = HARVEST_MAX_CANDIDATES
@@ -84,68 +83,6 @@ def _boundary_f0s(f0_floor: float, f0_ceil: float) -> tuple[float, ...]:
     n = 1 + int(math.log2(hi / lo) * HARVEST_CHANNELS_IN_OCTAVE)
     return tuple(lo * 2.0 ** ((i + 1) / HARVEST_CHANNELS_IN_OCTAVE)
                  for i in range(n))
-
-
-def _channel_candidates(tracks: torch.Tensor, bfs: torch.Tensor,
-                        floor: float, ceil: float):
-    """[B, C, 4, N] tracks -> per-channel (candidate, deviation) [B, C, N]."""
-    mean = torch.mean(tracks, dim=2)
-    dev = (torch.amax(torch.abs(tracks - mean[:, :, None, :]), dim=2)
-           / torch.clamp(mean, min=1e-12))
-    bf = bfs[:, None]
-    ok = (torch.all(tracks > 0.0, dim=2) & (dev <= HARVEST_CONSISTENCY)
-          & (mean >= floor) & (mean <= ceil) & (mean >= bf / 2.0)
-          & (mean <= bf * HARVEST_BAND_GATE_HIGH))
-    return (torch.where(ok, mean, 0.0),
-            torch.where(ok, dev, torch.inf))
-
-
-def _merge_channels(cand: torch.Tensor, dev: torch.Tensor):
-    """[B, C, N] per-channel candidates -> [B, N, K] merged candidates.
-
-    Consecutive channels whose candidates agree within the merge
-    tolerance form one region; the region's candidate is its mean, its
-    quality the best deviation.  A loop over the channel axis; regions
-    emit in ascending-frequency order, at most K per frame.
-    """
-    bsz, _, n = cand.shape
-    dev_ = cand.device
-    slots = torch.arange(_K, device=dev_)
-    run_sum = torch.zeros((bsz, n), device=dev_)
-    run_cnt = torch.zeros((bsz, n), device=dev_)
-    run_best = torch.full((bsz, n), torch.inf, device=dev_)
-    prev = torch.zeros((bsz, n), device=dev_)
-    filled = torch.zeros((bsz, n), dtype=torch.int64, device=dev_)
-    out_v = torch.zeros((bsz, n, _K), device=dev_)
-    out_d = torch.full((bsz, n, _K), torch.inf, device=dev_)
-    zero = torch.zeros((), device=dev_)
-
-    def emit(value, best, do_emit):
-        nonlocal filled, out_v, out_d
-        can = do_emit & (filled < _K)
-        write = ((slots == torch.clamp(filled, max=_K - 1)[..., None])
-                 & can[..., None])
-        out_v = torch.where(write, value[..., None], out_v)
-        out_d = torch.where(write, best[..., None], out_d)
-        filled = filled + can.to(torch.int64)
-
-    for ci in range(cand.shape[1]):
-        c_i, d_i = cand[:, ci], dev[:, ci]
-        valid = c_i > 0.0
-        cont = (valid & (prev > 0.0)
-                & (torch.abs(c_i - prev)
-                   < HARVEST_MERGE_TOLERANCE * torch.clamp(prev, min=1e-12)))
-        emit(run_sum / torch.clamp(run_cnt, min=1.0), run_best,
-             (run_cnt > 0.0) & ~cont)
-        run_sum = torch.where(cont, run_sum + c_i,
-                              torch.where(valid, c_i, zero))
-        run_cnt = torch.where(cont, run_cnt + 1.0,
-                              torch.where(valid, 1.0, zero))
-        run_best = torch.where(cont, torch.minimum(run_best, d_i),
-                               torch.where(valid, d_i, torch.inf))
-        prev = c_i
-    emit(run_sum / torch.clamp(run_cnt, min=1.0), run_best, run_cnt > 0.0)
-    return out_v, out_d
 
 
 def _guided_reselect(f0: torch.Tensor, refined: torch.Tensor,
@@ -351,11 +288,10 @@ def harvest(x: torch.Tensor, fs: int = DEFAULT_WORLD.fs,
                               fs_d // 1000).reshape(bsz, n_ch, 4, n_1ms)
     del filtered
     with span("hv_merge"):
-        cand, dev = _channel_candidates(
+        merged = merge_channels(
             tracks, torch.tensor(bfs, dtype=torch.float32, device=x.device),
-            floor, ceil)
+            floor, ceil)                                     # [B, N, K]
         del tracks
-        merged, _ = _merge_channels(cand, dev)              # [B, N, K]
 
     win = harvest_refine_window(fs, f0_floor)
     with span("hv_refine"):

@@ -65,9 +65,10 @@ def analysis_kernels(cfg: WorldConfig) -> tuple:
     ``world_features`` launches on the card under ``cfg``: the event
     blocks, their scans and the contour extension of either f0 method,
     CheapTrick's windowing, the envelopes' smoothing, then StoneMask's
-    harmonic DFT (DIO) or Harvest's refinement, and group-delay D4C's
-    top-k sum."""
-    f0 = {"dio": ("harmonics",), "harvest": ("refine",)}[cfg.f0_method]
+    harmonic DFT (DIO) or Harvest's channel merge and refinement, and
+    group-delay D4C's top-k sum."""
+    f0 = {"dio": ("harmonics",), "harvest": ("merge", "refine")}[
+        cfg.f0_method]
     ap = ("topk",) if cfg.ap_method == "group_delay" else ()
     return ("events", "scan", "extend", "window", "smooth") + f0 + ap
 

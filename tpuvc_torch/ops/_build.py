@@ -8,9 +8,9 @@ sources, the flags and nvcc's version (an edit rebuilds; the two most
 recently used libraries stay), and loaded with ``ctypes``.  Nothing here
 runs at import time: the first kernel launch calls :func:`lib`.
 
-No ``--use_fast_math``: the event and contour kernels must be bit-exact
-against their plain versions, and the harmonic and window kernels rely on IEEE
-``sinf``/``cosf`` and division to stay inside their tolerances.
+No ``--use_fast_math``: the event, contour and merge kernels must be
+bit-exact against their plain versions, and the harmonic and window kernels
+rely on IEEE ``sinf``/``cosf`` and division to stay inside their tolerances.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ SIGNATURES = {
     "tpuvc_d2s_ln_lrelu": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     "tpuvc_extend_scans": (_P, _P, _P, _I, _I, _I, _F, _P),
     "tpuvc_norm_lrelu": (_P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
+    "tpuvc_merge_channels": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -111,7 +112,7 @@ def lib() -> ctypes.CDLL:
 
 # the launch counters' names, one per kernel, in the order of their records
 KERNEL_NAMES = ("events", "harmonics", "window", "smooth", "topk", "refine",
-                "scan", "conv", "d2s", "extend", "norm")
+                "scan", "conv", "d2s", "extend", "norm", "merge")
 _counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 

@@ -3,7 +3,8 @@
   python -m tpuvc_torch.cli.convert --src SF1 --trg TM3 \
       --checkpoint logdir/train/<ts> --corpus dataset/vcc2016 \
       [--file_pattern "*.wav"] [--output DIR] [--split test] [--all_pairs] \
-      [--streaming] [--data_parallel] [--device cuda|cpu]
+      [--streaming] [--data_parallel] [--vocoder-checkpoint PATH] \
+      [--device cuda|cpu]
 
 Port of ``tpuvc/cli/convert.py`` with the same flags, ``--device`` in
 place of ``--platform``: conversion runs on the CUDA card unless
@@ -13,7 +14,11 @@ then converts every matching source-speaker utterance (analysis ->
 encode -> speaker-swap decode -> f0 transform -> synthesis) and writes
 <output>/<trg>-<utt>.wav, or <src>-to-<trg>-<utt>.wav for every ordered
 pair of speakers under ``--all_pairs`` (with ``--data_parallel``, each
-batch split over every local card; on the CPU, its one device).  The JAX
+batch split over every local card; on the CPU, its one device).  With
+``--vocoder-checkpoint`` a trained Parallel WaveGAN generator
+(``models/pwg.py:save``: its spec and state dict) makes the waveform from
+the converted features in place of WORLD's synthesis (whole utterances
+only, not ``--streaming``).  The JAX
 package's Orbax checkpoints cannot be read without JAX: the port neither
 reads nor writes them.
 """
@@ -30,16 +35,21 @@ from tpuvc_torch.cli.common import add_device_flag, apply_device
 def load_converter(checkpoint_dir: str, corpus_root: str,
                    f0_method: str = "dio", ap_method: str = "group_delay",
                    transfer_encoding: str = "float32",
-                   harvest_decim: int = 1, device="cuda"):
+                   harvest_decim: int = 1, device="cuda",
+                   vocoder_checkpoint: str | None = None):
     """(Converter, step) from a training run dir + corpus etc/ stats.
 
     The generator is the checkpoint's "gen" entry (VAW-GAN run) or
-    "model" entry (VAE run), loaded into ``VAWGAN(arch)`` on ``device``."""
+    "model" entry (VAE run), loaded into ``VAWGAN(arch)`` on ``device``;
+    ``vocoder_checkpoint`` names a Parallel WaveGAN checkpoint
+    (``models/pwg.py:save``) loaded beside it in the model's compute
+    type."""
     import dataclasses
 
     from tpuvc_torch.convert.pipeline import Converter, ConverterAssets
     from tpuvc_torch.dsp.constants import DEFAULT_WORLD
     from tpuvc_torch.io import corpus as corpus_io
+    from tpuvc_torch.models import pwg
     from tpuvc_torch.models.params import load_model
     from tpuvc_torch.train.checkpoint import latest_state_dict
     from tpuvc_torch.utils.config import Architecture
@@ -61,9 +71,11 @@ def load_converter(checkpoint_dir: str, corpus_root: str,
     cfg = dataclasses.replace(DEFAULT_WORLD, f0_method=f0_method,
                               ap_method=ap_method,
                               harvest_channel_decim=harvest_decim)
+    vocoder = (None if vocoder_checkpoint is None else pwg.load(
+        vocoder_checkpoint, device, arch.compute_dtype))
     return Converter(model, assets, cfg=cfg,
                      transfer_encoding=transfer_encoding,
-                     device=device), step
+                     device=device, vocoder=vocoder), step
 
 
 def main(argv: list[str] | None = None) -> list[str]:
@@ -108,6 +120,10 @@ def main(argv: list[str] | None = None) -> list[str]:
                    help="device->host waveform encoding (ops/ulaw.py): "
                         "ulaw8 = 8-bit mu-law, pcm12 = packed 12-bit PCM; "
                         "written WAVs are 16-bit either way")
+    p.add_argument("--vocoder-checkpoint", default=None,
+                   help="a Parallel WaveGAN generator (models/pwg.py:save: "
+                        "spec and state dict) that makes the waveform in "
+                        "place of WORLD's synthesis")
     add_device_flag(p)
     args = p.parse_args(argv)
     device = apply_device(args)
@@ -118,7 +134,8 @@ def main(argv: list[str] | None = None) -> list[str]:
     converter, step = load_converter(args.checkpoint, args.corpus,
                                      args.f0_method, args.ap_method,
                                      args.transfer_encoding,
-                                     args.harvest_decim, device)
+                                     args.harvest_decim, device,
+                                     args.vocoder_checkpoint)
     split = (corpus_io.TEST_SPLIT if args.split == "test"
              else corpus_io.TRAIN_SPLIT)
     out_dir = args.output or os.path.join(args.checkpoint, "converted")

@@ -7,7 +7,9 @@ StoneMask with group-delay D4C); the envelope is energy-normalised,
 log10'd and mapped to [-1, 1] (Tanhize), encoded, decoded with the target
 speaker's code (from z_mu, or a sample of z with ``sample_z``) and
 de-normalised; f0 gets the log-linear transform;
-minimum-phase synthesis makes the waveform.
+minimum-phase synthesis makes the waveform, or, where the converter holds
+a vocoder (``models/pwg.py``, Parallel WaveGAN), the vocoder makes it from
+the same unit white noise and the converted features' conditioning.
 PyTorch runs eagerly, so there is no jit boundary: the batch is written
 out as a leading dimension.
 
@@ -18,6 +20,15 @@ noise does not depend on the rows beside it.  That makes the
 data-parallel mode of ``Converter.convert_batch`` (``mesh=``: each chunk
 split over a local device mesh, one model replica per device, one thread
 per shard) give every row what the unsharded call gives it.
+
+Stage spans (``utils/profiling.py:span``, recorded only under a
+profiler): ``vc.convert_batch`` around a call, ``vc.prep`` per chunk,
+``vc.upload``, ``vc.noise`` and ``vc.fetch`` per device call, and inside
+the converter ``world.f0`` / ``world.sp`` / ``world.ap``
+(``dsp/world.py``), ``vc.model`` (with ``vc.encode`` and ``vc.decode``),
+then ``vc.synth`` (WORLD's synthesis) or, with a vocoder, ``vc.vocode``
+holding ``vc.vocode.aux`` (the conditioning), ``vc.vocode.upsample`` and
+``vc.vocode.stack``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from tpuvc_torch.dsp.constants import DEFAULT_WORLD, EPSILON, WorldConfig
 from tpuvc_torch.dsp.synthesis import synthesis_noise, synthesize
 from tpuvc_torch.dsp.world import world_features
 from tpuvc_torch.io.wav import resample
+from tpuvc_torch.models import pwg
 from tpuvc_torch.models.losses import reparameterize
 from tpuvc_torch.ops import ulaw
 from tpuvc_torch.parallel import mesh as mesh_lib
@@ -75,7 +87,7 @@ def _denormalize_sp(u, en, xmin, xmax):
 
 
 def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
-                          sample_z: bool = False):
+                          sample_z: bool = False, vocoder=None):
     """The batched converter over [B, T] utterances with per-utterance
     target speakers and f0 statistics.
 
@@ -84,7 +96,13 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
     waveforms [B, (T//hop+1)*hop].  ``model`` is a
     ``tpuvc_torch.models.vae.VAWGAN`` holding its parameters.  With
     ``sample_z`` the decoder takes z = z_mu + eps * exp(z_lv / 2), ``eps``
-    [B, T//hop+1, z_dim] standard normal; otherwise z_mu."""
+    [B, T//hop+1, z_dim] standard normal; otherwise z_mu.  With
+    ``vocoder`` (a ``models.pwg.ParallelWaveGAN`` on the model's device)
+    the waveform is ``vocoder(noise, aux_features(...))`` of the converted
+    features in place of WORLD's synthesis, of the same length."""
+    if vocoder is not None and vocoder.spec.hop != cfg.hop:
+        raise ValueError(f"the vocoder upsamples by {vocoder.spec.hop} and "
+                         f"the analysis hop is {cfg.hop}")
 
     @torch.no_grad()
     def convert(xs, y_trgs, xmin, xmax, mu_srcs, sd_srcs, mu_trgs, sd_trgs,
@@ -104,6 +122,12 @@ def make_batch_convert_fn(model, cfg: WorldConfig = DEFAULT_WORLD,
                 u_conv = model.decode(z, y_vec).reshape(bsz, n, -1)
             sp_conv = _denormalize_sp(u_conv, en, xmin, xmax)
             f0_conv = convert_f0(f0, mu_srcs, sd_srcs, mu_trgs, sd_trgs)
+        if vocoder is not None:
+            with span("vc.vocode"):
+                with span("vc.vocode.aux"):
+                    c = pwg.aux_features(f0_conv, sp_conv, ap, cfg,
+                                         vocoder.spec)
+                return vocoder(noise, c)
         with span("vc.synth"):
             return synthesize(f0_conv, sp_conv, ap, noise, fs=cfg.fs,
                               hop=cfg.hop, fft_size=cfg.fft_size)
@@ -147,17 +171,22 @@ class Converter:
 
     # one call's audio-seconds budget: batch 128 x 4 s runs as one call
     # on the 80 GB card with either f0 method (peak 13.50 GiB with DIO,
-    # 13.68 GiB with Harvest: PERF.md)
+    # 13.68 GiB with Harvest: PERF.md), and with the Parallel WaveGAN
+    # vocoder in bf16 (peak 8.93 GiB with DIO since the model's layout
+    # copies went: PERF.md)
     MAX_AUDIO_S_PER_CALL = 512.0
 
     def __init__(self, model, assets: ConverterAssets,
                  cfg: WorldConfig = DEFAULT_WORLD, bucket_s: float = 1.0,
                  transfer_encoding: str = "float32",
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", vocoder=None):
         """``transfer_encoding``: "float32", "ulaw8" (1 B/sample) or
         "pcm12" (1.5 B/sample) — the waveform is encoded on the device
         and decoded on the host.  ``device``: the card by default; the
-        model must already be on it (``models.params.load_model``)."""
+        model must already be on it (``models.params.load_model``).
+        ``vocoder``: a ``models.pwg.ParallelWaveGAN`` on the same device
+        (``models.pwg.load``) that makes the waveform in place of WORLD's
+        synthesis; None for WORLD's."""
         if transfer_encoding not in ("float32", "ulaw8", "pcm12"):
             raise ValueError(f"unknown transfer_encoding "
                              f"{transfer_encoding!r}")
@@ -167,7 +196,8 @@ class Converter:
         self.device = resolve(device)
         self.bucket = int(bucket_s * cfg.fs)
         self.transfer_encoding = transfer_encoding
-        self._fn = make_batch_convert_fn(model, cfg)
+        self.vocoder = vocoder
+        self._fn = make_batch_convert_fn(model, cfg, vocoder=vocoder)
         put = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, np.float32), device=self.device)
         self._xmin, self._xmax = put(assets.xmin), put(assets.xmax)
@@ -175,14 +205,16 @@ class Converter:
 
     def _replicas_for(self, mesh) -> list:
         """Per shard of ``mesh``: (convert fn, xmin, xmax) on its device,
-        the model replicated once per distinct device; built on the first
-        call with this mesh."""
+        the model (and the vocoder) replicated once per distinct device;
+        built on the first call with this mesh."""
         if self._replicas is None or self._replicas[0] != mesh:
             models, xmins, xmaxs = (mesh_lib.replicated(mesh, v) for v in (
                 self.model, self._xmin, self._xmax))
+            vocoders = (mesh_lib.replicated(mesh, self.vocoder)
+                        if self.vocoder is not None else [None] * mesh.size)
             self._replicas = (mesh, [
-                (make_batch_convert_fn(m, self.cfg), lo, hi)
-                for m, lo, hi in zip(models, xmins, xmaxs)])
+                (make_batch_convert_fn(m, self.cfg, vocoder=v), lo, hi)
+                for m, v, lo, hi in zip(models, vocoders, xmins, xmaxs)])
         return self._replicas[1]
 
     def _encode_transfer(self, y: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,18 @@ from tpuvc_torch.dsp.constants import DEFAULT_WORLD, WorldConfig
 from tpuvc_torch.utils.profiling import span
 
 
+def _refuse_vocoder(converter: Converter) -> None:
+    """Streaming joins windows of [halo | chunk | halo]; a vocoder's
+    receptive field (Parallel WaveGAN's stack: 6,139 samples, 0.38 s) is
+    longer than the halo, so a window's interior would not see its full
+    context: streaming takes WORLD's synthesis only."""
+    if getattr(converter, "vocoder", None) is not None:
+        raise ValueError("streaming conversion does not take a vocoder: "
+                         "its halo is shorter than the vocoder's receptive "
+                         "field; convert whole utterances "
+                         "(Converter.convert_batch) instead")
+
+
 class StreamingConverter:
     """Push-based chunked converter over a Converter (one (src, trg) pair).
 
@@ -37,6 +49,7 @@ class StreamingConverter:
     def __init__(self, converter: Converter, src: str, trg: str,
                  chunk_s: float = 1.0, halo_s: float = 0.192,
                  cfg: WorldConfig = DEFAULT_WORLD, seed: int = 0):
+        _refuse_vocoder(converter)
         self.conv = converter
         self.src = src
         self.trg = trg
@@ -140,6 +153,7 @@ class MultiStreamConverter:
         """``mesh``: a local ``tpuvc_torch.parallel.mesh`` data mesh; each
         tick's batch is split over its devices (``Converter.convert_batch``
         with ``mesh``), so N devices carry N times the streams."""
+        _refuse_vocoder(converter)
         self.conv = converter
         self.pairs = list(pairs)
         self.mesh = mesh

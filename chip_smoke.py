@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR] [--profile]
 
-Five paths, each a ``WorldConfig`` and architecture of the converter:
+Six paths, each a ``WorldConfig`` and architecture of the converter:
 
   default  DEFAULT_WORLD: DIO (with the fused block scans) + StoneMask,
            CheapTrick, group-delay D4C (the main path; batch 128 x 4 s in
@@ -17,6 +17,11 @@ Five paths, each a ``WorldConfig`` and architecture of the converter:
            d2s_impl "pallas": fused conv + LayerNorm + LeakyReLU in the
            encoder, fused depth-to-space + LayerNorm + LeakyReLU in the
            decoder); batch 128 x 4 s
+  pwg      DEFAULT_WORLD and the default architecture, the waveform made
+           by Parallel WaveGAN v1 in bf16 (seeded weights, conditioning
+           statistics from the served requests' own features) in place
+           of WORLD's synthesis: K13 once a residual layer (batch 64 x
+           4 s)
 
 Phases (each prints lines; any failure raises, so the script exits
 non-zero and prints no ``"ok"`` line):
@@ -24,11 +29,12 @@ non-zero and prints no ``"ok"`` line):
   1. device  — require a CUDA card; print its name and, from nvidia-smi,
                its name and power limit; turn TF32 off for the
                comparisons.
-  2. build   — compile the twelve CUDA kernels (tpuvc_torch/csrc: the
+  2. build   — compile the thirteen CUDA kernels (tpuvc_torch/csrc: the
                nine of the JAX package's Pallas kernels, the contour
                kernel and Harvest's channel merge, K12, which replace
-               jax.lax.scans, and the model's LayerNorm + LeakyReLU, K11,
-               which XLA fuses) with nvcc
+               jax.lax.scans, the model's LayerNorm + LeakyReLU, K11,
+               which XLA fuses, and Parallel WaveGAN's residual layer,
+               K13, which has no JAX counterpart) with nvcc
                into build/tpuvc_torch/ and the host-IO library
                (tpuvc_torch/native/io.cc) with g++ into
                build/tpuvc_torch_host/, both through
@@ -48,20 +54,33 @@ non-zero and prints no ``"ok"`` line):
                or chain's time where one computes the same function; the
                fused conv's product also as one float32 F.conv1d with
                cuDNN's TF32 off and on).
+ 12. vocoder — (run after phase 3) K13 against its plain version on one
+               residual layer's bf16 rows at the PWG cell's call (64 x
+               96000 positions, dilations 1 and 512: the next x and the
+               skip sum within one bf16 step, plus one step of g carried
+               through W2), timed as phase 3 times a kernel, with the
+               layer as PyTorch's launches as the library yardstick; then
+               whole vocoder calls of 64 x 6 s: a bf16 generator must
+               launch K13 once a layer (30), a float32 one none; the K13
+               and eager bf16 calls' times and waveform errors against the
+               float32 generator, and K13's device time per launch in a
+               profiled call.
   4. serve   — per path, tpuvc_torch.convert.pipeline.Converter (full-width
                VAW-GAN, seeded random weights, bf16 compute, ulaw8)
                serves six synthetic requests of 1-4 s with every launch
                counter set to 0 just before and read just after; each
                kernel of the path, K11 included, must have launched, and
                each model call must run serving_convs(path) convolutions
-               channels-last (Conv._nhwc: 10 default, 5 fused).
+               channels-last (Conv._nhwc: 10 default, 5 fused);
+               the pwg path's vocoder must launch K13 30 times a vocoder
+               call, and no other path may launch it.
                The default path serves the same requests again with
                float32 and pcm12 transfer: decoded on the host, ulaw8
                and pcm12 against float32 clipped to [-1, 1] hold SNR
                >= 30 and >= 50 dB.
                For every path but nccf a 1 s input is also converted on
-               the card and on the CPU (plain versions, float32 model):
-               waveform SNR >= 30 dB.  The fused path then drives the two
+               the card and on the CPU (plain versions, float32 model and
+               vocoder): waveform SNR >= 30 dB.  The fused path then drives the two
                other entry points, counters zeroed and read around each:
                a streamed request through
                tpuvc_torch.convert.streaming.StreamingConverter, and
@@ -195,6 +214,7 @@ FS = 16000
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM float32, outside tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 on the tensor cores, dense
 
 # name, source, Pallas function it replaces, the path whose launches the
 # record reports
@@ -234,10 +254,12 @@ KERNEL_FUNCS = ("event_block_pairs_kernel", "harmonic_dft_kernel",
                 "conv_ln_lrelu_row_kernel", "conv_ln_lrelu_tc_kernel",
                 "split_tf32_kernel", "d2s_ln_lrelu_kernel",
                 "extend_scans_kernel", "norm_lrelu_rows_kernel",
-                "norm_lrelu_any_kernel", "merge_channels_kernel")
+                "norm_lrelu_any_kernel", "merge_channels_kernel",
+                "pwg_residual_kernel")
 
 # path -> (WorldConfig fields, rate batch, Architecture fields); the kernels
-# each path launches follow from its fields (``path_kernels``)
+# each path launches follow from its fields (``path_kernels``) and, on the
+# paths of VOCODED, its vocoder's (``models.pwg.vocoder_kernels``)
 PATHS = {
     "default": ({}, 128, {}),
     "harvest": ({"f0_method": "harvest"}, 32, {}),
@@ -245,7 +267,10 @@ PATHS = {
                        32, {}),
     "nccf": ({"ap_method": "nccf"}, 16, {}),
     "fused": ({}, 128, {"conv_impl": "pallas", "d2s_impl": "pallas"}),
+    "pwg": ({}, 64, {}),
 }
+# the paths whose waveform Parallel WaveGAN makes (``path_vocoder_state``)
+VOCODED = ("pwg",)
 
 
 def say(*parts) -> None:
@@ -276,6 +301,27 @@ def path_kernels(path: str, model: bool = True) -> tuple:
     from tpuvc_torch.models.vae import serving_kernels
     return analysis_kernels(path_cfg(path)) + (
         serving_kernels(path_arch(path)) if model else ())
+
+
+def path_vocoder_state(path: str, xs, cfg, dev) -> dict | None:
+    """The vocoder's state for a VOCODED path (None on the others):
+    ``vocoder_state``'s weights for Parallel WaveGAN v1, its conditioning
+    standardized by the mean and deviation of ``xs``'s own features (as
+    the published recipe's stats.h5 holds its training corpus's), analysed
+    on ``dev`` at the shortest utterance's length."""
+    if path not in VOCODED:
+        return None
+    import torch
+    from tpuvc_torch.dsp.world import world_features
+    from tpuvc_torch.models import pwg
+    spec = pwg.PWGSpec()
+    n = min(len(x) for x in xs)
+    x = torch.tensor(np.stack([v[:n] for v in xs]), device=dev)
+    with torch.no_grad():
+        aux = pwg.aux_features(*world_features(x, cfg), cfg, spec)
+    frames = aux.transpose(0, 1).reshape(spec.aux_channels, -1).cpu()
+    return {**vocoder_state(spec), "aux_mean": frames.mean(dim=1),
+            "aux_scale": frames.std(dim=1).clamp(min=1e-3)}
 
 
 def serving_convs(path: str) -> int:
@@ -543,12 +589,14 @@ def capture_norm_inputs(state, sp, dev) -> list:
             for (ln, h, slope), _ in calls]
 
 
-def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> dict:
+def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0,
+           bf16_ops: float = 0.0) -> dict:
     """The least time the card takes to move nbytes and do ops float32
-    operations (plus tf32_ops on the tensor cores), in ms, which of the two
-    bounds it, and both times."""
+    operations (plus tf32_ops and bf16_ops on the tensor cores), in ms,
+    which of the two bounds it, and both times."""
     tb = 1e3 * nbytes / HBM_BYTES_PER_S
-    to = 1e3 * (ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S)
+    to = 1e3 * (ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S
+                + bf16_ops / BF16_OPS_PER_S)
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bytes_ms": tb, "ops_ms": to}
@@ -579,6 +627,10 @@ OPS_EXTEND_CAND = 4
 # clamp, a multiply, a comparison), the closing mean (a clamp, a
 # division) and the run's 2 additions and 4 selects
 OPS_MERGE_CHANNEL = 44
+# K13 on the float32 cores per gated value: tanh, exp, the sigmoid's add
+# and reciprocal, the product (the epilogue's few adds an output value are
+# left out: both are under 1% of the products' tensor-core time)
+OPS_PWG_GATE = 5
 WINDOW_ONE_PASS_QUADS = 32 * 4     # csrc/window.cu: 32 lanes x kSlots
 
 
@@ -706,6 +758,19 @@ def bound_of(name: str, args, out) -> dict:
         b, c, _, n = tracks.shape
         return _bound(f4 * (tracks.numel() + c + out.numel()),
                       OPS_MERGE_CHANNEL * b * c * n)
+    if name == "pwg":
+        # a position's x, c and skip read and its skip and next x written
+        # once (bf16), the weights once; both products on the tensor cores
+        # in bf16 (2 K N a position each), the gate on the float32 cores
+        x, c, skip, ops = args[:4]
+        pos = x.shape[0] * x.shape[1]
+        nbytes = (x.element_size() * pos * (2 * x.shape[2] + c.shape[-1]
+                                            + 2 * skip.shape[-1])
+                  + sum(v.element_size() * v.numel() for v in ops))
+        k1, n1 = ops.w1.shape[1], ops.w1.shape[0]
+        k2, n2 = ops.w2.shape[1], ops.w2.shape[0]
+        return _bound(nbytes, OPS_PWG_GATE * k2 * pos,
+                      bf16_ops=2 * (k1 * n1 + k2 * n2) * pos)
     if name == "extend":
         # bound by the latency of the 2N steps each row walks one after
         # another, which has no time of its own here; the bytes and
@@ -1007,6 +1072,207 @@ def phase_kernels(dev, state, dur_s: float = 4.0,
     return res
 
 
+# --- phase 12: vocoder -----------------------------------------------------
+
+# the PWG cell's call: 64 rows of 6 s at 16 kHz; the stacks' first and last
+# dilation
+VOCODER_ROWS, VOCODER_SAMPLES = 64, 96000
+VOCODER_DILATIONS = (1, 512)
+
+
+def vocoder_state(spec, seed: int = 0) -> dict:
+    """Seeded float32 weights for ``spec``'s generator: LeCun-normal
+    kernels and biases of a tenth, so that every bias counts."""
+    import torch
+    from tpuvc_torch.models import pwg
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in pwg.ParallelWaveGAN(spec).state_dict().items():
+        if k in ("aux_mean", "aux_scale"):
+            out[k] = v
+        elif v.dim() == 1:
+            out[k] = 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            out[k] = torch.randn(v.shape, generator=g) / math.sqrt(
+                v[0].numel())
+    return out
+
+
+def pwg_against_plain(got, want, got_skip, want_skip, ops) -> tuple:
+    """K13's next x and skip sum against the plain version's: each within
+    one bf16 step of the plain value plus one bf16 step of every g carried
+    through W2 (K13's tanh and its sum order may round a g the other way),
+    and most values within one step alone.  Returns the max abs error and
+    the share of values within one step."""
+    import torch
+    w2 = ops.w2.float().abs().sum(1) * 2.0 ** -8
+    carry = {"x": w2[w2.shape[0] // 2:] * math.sqrt(0.5),
+             "skip": w2[:w2.shape[0] // 2]}
+    worst, within = 0.0, 1.0
+    for name, g, w in (("x", got.reshape(-1, got.shape[-1]),
+                        want.reshape(-1, want.shape[-1])),
+                       ("skip", got_skip, want_skip)):
+        err = (g.float() - w.float()).abs()
+        e = torch.floor(torch.log2(w.abs().float().clamp(min=2.0 ** -126)))
+        step = torch.exp2(e - 7.0)
+        share = float((err <= step).float().mean())
+        if (not bool(torch.isfinite(g.float()).all())
+                or bool((err > step + carry[name]).any()) or share < 0.99):
+            raise AssertionError(
+                f"pwg: K13's {name} disagrees with its plain version (max "
+                f"abs err {float(err.max()):.3e}, {100 * share:.3f}% within "
+                "one bf16 step)")
+        worst, within = max(worst, float(err.max())), min(within, share)
+    return worst, within
+
+
+@contextlib.contextmanager
+def eager_layers(vocoder):
+    """Every residual layer of ``vocoder`` on PyTorch's launches
+    (``_ResidualBlock.eager``, the route before K13) inside the block."""
+    for block in vocoder.conv_layers:
+        block.forward = (lambda x, c, skip, out=None, b=block:
+                         b.eager(x, c, skip))
+    try:
+        yield
+    finally:
+        for block in vocoder.conv_layers:
+            del block.forward
+
+
+def phase_vocoder(dev, rows: int = VOCODER_ROWS,
+                  samples: int = VOCODER_SAMPLES,
+                  profile_dir: str | None = None) -> dict:
+    """K13 against its plain version on one layer's bf16 rows at the PWG
+    cell's call (the next x and the skip sum, at dilations 1 and 512), and
+    timed: a single call, back to back, the plain version and the layer as
+    PyTorch's launches (the eager route the port took before K13, the
+    yardstick), beside its bytes bound.  Then whole vocoder calls at the
+    same size: a bf16 generator launches K13 once a layer (30), a float32
+    one none; the K13 and eager bf16 calls' times, each waveform's error
+    energy against the float32 generator's, and, profiled on the card,
+    K13's device time per launch in the call."""
+    import torch
+    from tpuvc_torch.models import pwg
+    from tpuvc_torch.ops import _build
+    from tpuvc_torch.ops import pwg as op
+    spec = pwg.PWGSpec()
+    state = vocoder_state(spec)
+    half = pwg.load_vocoder(spec, state, dev, "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    x = torch.randn((rows, samples, spec.residual_channels), generator=g,
+                    device=dev).to(bf)
+    c = torch.randn((rows * samples, spec.aux_channels), generator=g,
+                    device=dev).to(bf)
+    skip = torch.randn((rows * samples, spec.skip_channels), generator=g,
+                       device=dev).to(bf)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    per_stack = spec.layers // spec.stacks
+    sites = []
+    for d in VOCODER_DILATIONS:
+        block = half.conv_layers[int(math.log2(d)) % per_stack]
+        assert block.dilation == d
+        ops = block.operands()
+        got_skip, want_skip = skip.clone(), skip.clone()
+        got = op.residual_layer(x, c, got_skip, ops, d)
+        want = op.residual_layer_plain(x, c, want_skip, ops, d)
+        sync()
+        err, within = pwg_against_plain(got, want, got_skip, want_skip, ops)
+        del want, want_skip
+        out = torch.empty_like(x)
+        r = dict(site=f"one layer at dilation {d}, {rows} x {samples}",
+                 shape=[list(x.shape), list(c.shape), list(skip.shape)],
+                 max_abs_err=err, within_one_step=within,
+                 tol="one bf16 step + one bf16 step of g through W2; "
+                     ">= 99% within one step",
+                 ms=cuda_ms(lambda: op.residual_layer(x, c, got_skip, ops, d,
+                                                      out)),
+                 b2b_ms=cuda_ms(back_to_back(
+                     lambda: op.residual_layer(x, c, got_skip, ops, d,
+                                               out))) / B2B_REPS,
+                 plain_ms=cuda_ms(lambda: op.residual_layer_plain(
+                     x, c, got_skip, ops, d)),
+                 library_ms=cuda_ms(lambda: block.eager(x, c, got_skip)),
+                 library="the layer as PyTorch launches it in bf16: cuDNN's "
+                         "NHWC dilated convolution, cuBLAS's products "
+                         "adding into their destinations, ATen's gate",
+                 **bound_of("pwg", (x, c, skip, ops, d), got))
+        del got, got_skip, out
+        sites.append(r)
+        say(f"[12 vocoder] pwg ({r['site']}): max_abs_err {err:.3e}, "
+            f"{100 * within:.4f}% within one bf16 step; kernel "
+            f"{r['ms']:.4f} ms (back to back {r['b2b_ms']:.4f} ms, mean of "
+            f"{B2B_REPS}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+            f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}), library "
+            f"{r['library_ms']:.4f} ms ({r['library']})")
+    del x, c, skip
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # whole calls: the PWG cell's noise and conditioning shapes
+    n = samples // spec.hop
+    z = torch.randn((rows, n * spec.hop), generator=g, device=dev)
+    cond = torch.randn((rows, spec.aux_channels, n), generator=g,
+                       device=dev)
+    full = pwg.load_vocoder(spec, state, dev, "float32")
+    _build.reset_counts()
+    want = full(z, cond)
+    sync()
+    f32_launches = _build.read_counts()["pwg"]
+    if f32_launches:
+        raise AssertionError(f"pwg: a float32 vocoder launched K13 "
+                             f"{f32_launches} times")
+    _build.reset_counts()
+    y = half(z, cond)
+    sync()
+    launches = _build.read_counts()["pwg"]
+    _build.require_launches(pwg.vocoder_kernels(half), dev, "vocoder")
+    want_launches = spec.layers if pwg.vocoder_kernels(half) else 0
+    if launches != want_launches:
+        raise AssertionError(f"pwg: {launches} K13 launches in a vocoder "
+                             f"call, not {want_launches}")
+
+    def db(a):
+        return float(10 * torch.log10(((a - want) ** 2).sum()
+                                      / (want ** 2).sum()))
+    # the same bf16 generator with every layer on PyTorch's launches
+    with eager_layers(half):
+        eager_y = half(z, cond)
+        eager_ms = cuda_ms(lambda: half(z, cond))
+    rec = {"sites": sites, "launches_per_call": launches,
+           "float32_launches_per_call": f32_launches,
+           "call_ms": cuda_ms(lambda: half(z, cond)),
+           "call_eager_ms": eager_ms,
+           "wave_err_db_vs_float32": db(y),
+           "wave_err_db_vs_float32_eager": db(eager_y),
+           "call_shape": [list(z.shape), list(cond.shape)],
+           "in_call_ms": None}
+    if rec["wave_err_db_vs_float32"] > -25.0:
+        raise AssertionError(f"pwg: the bf16 vocoder reads "
+                             f"{rec['wave_err_db_vs_float32']:.2f} dB "
+                             "against the float32 one")
+    if dev.type == "cuda":
+        prof = profile_call(lambda: half(z, cond),
+                            profile_dir or os.path.join(ROOT, "build"),
+                            "vocoder_profile.txt", phase="12 vocoder")
+        k = prof.get("port_kernels", {}).get("pwg_residual_kernel")
+        if k:
+            rec["in_call_ms"] = k["device_ms"] / k["launches"]
+            rec["in_call_launches"] = k["launches"]
+        rec["call_profile"] = prof
+    say(f"[12 vocoder] a bf16 vocoder call of {rows} x {n * spec.hop}: "
+        f"{launches} K13 launches (float32: {f32_launches}), "
+        f"{rec['call_ms']:.2f} ms (every layer eager: "
+        f"{rec['call_eager_ms']:.2f} ms); K13 in the call "
+        + (f"{rec['in_call_ms']:.4f} ms a launch"
+           if rec["in_call_ms"] is not None else "not measured")
+        + f"; against the float32 generator {rec['wave_err_db_vs_float32']:.2f}"
+        f" dB (eager bf16 {rec['wave_err_db_vs_float32_eager']:.2f} dB)")
+    return rec
+
+
 # --- phase 4: serve ------------------------------------------------------
 
 def build_state():
@@ -1031,8 +1297,9 @@ def phase_serve(path: str, dev, state,
     from tpuvc_torch.convert.pipeline import (Converter,
                                               make_batch_convert_fn,
                                               synthesis_noise)
-    from tpuvc_torch.models import vae
-    from tpuvc_torch.ops._build import read_counts, reset_counts
+    from tpuvc_torch.models import pwg, vae
+    from tpuvc_torch.ops._build import (read_counts, require_launches,
+                                        reset_counts)
     cfg = path_cfg(path)
     model = path_model(path, state, dev)
     rng = np.random.default_rng(0)
@@ -1040,22 +1307,28 @@ def phase_serve(path: str, dev, state,
     trg = [5, 3, 7, 0, 9, 2][:len(durs)]
     xs = [utterance(rng, s, d) for s, d in zip(src, durs)]
     assets = make_assets(xs, src, cfg, dev)
+    vstate = path_vocoder_state(path, xs, cfg, dev)
+    vocoder = (None if vstate is None else
+               pwg.load_vocoder(pwg.PWGSpec(), vstate, dev, "bfloat16"))
     conv = Converter(model, assets, cfg, transfer_encoding="ulaw8",
-                     device=dev)
+                     device=dev, vocoder=vocoder)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     reset_counts()
     decodes: list = []
     nhwc: list = []
+    vocodes: list = []
     t0 = time.perf_counter()
-    with spy(model, "decode", decodes), spy(vae.Conv, "_nhwc", nhwc):
+    with spy(model, "decode", decodes), spy(vae.Conv, "_nhwc", nhwc), (
+            spy(vocoder, "forward", vocodes) if vocoder is not None
+            else contextlib.nullcontext()):
         ys = conv.convert_batch(xs, [SPEAKERS[i] for i in src],
                                 [SPEAKERS[i] for i in trg], seed=0)
     sync()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    n_nhwc = len(nhwc)
-    del nhwc                    # the spy held the activations
+    n_nhwc, n_vocodes = len(nhwc), len(vocodes)
+    del nhwc, vocodes           # the spies held the activations
     if not decodes or n_nhwc != serving_convs(path) * len(decodes):
         raise AssertionError(f"{path}: {n_nhwc} channels-last "
                              f"convolutions over {len(decodes)} model calls,"
@@ -1070,13 +1343,22 @@ def phase_serve(path: str, dev, state,
         if not (-50.0 < rms_db < -3.0 and np.max(np.abs(y)) <= 1.0):
             raise AssertionError(f"{path}: output level {rms_db:.1f} dBFS "
                                  "is not speech scale")
-    missing = unlaunched(launches, path)
-    if missing and dev.type == "cuda":
-        raise AssertionError(f"{path} path did not launch: {missing}")
+    if vocoder is not None and not n_vocodes:
+        raise AssertionError(f"{path}: the converter never called its "
+                             "vocoder")
+    vocoded = pwg.vocoder_kernels(vocoder) if vocoder is not None else ()
+    require_launches(path_kernels(path) + vocoded, dev, f"{path} path")
+    # K13 once a residual layer of every vocoder call, and nowhere else
+    want_pwg = pwg.PWGSpec().layers * n_vocodes if vocoded else 0
+    if dev.type == "cuda" and launches["pwg"] != want_pwg:
+        raise AssertionError(f"{path}: {launches['pwg']} K13 launches over "
+                             f"{n_vocodes} vocoder calls, not {want_pwg}")
     say(f"[4 serve] {path}: {len(xs)} requests ({sum(durs):.1f} s of audio,"
         f" {', '.join(f'{d:g}' for d in durs)} s) converted in {wall:.3f} s;"
         f" kernel launches {launches}; {n_nhwc} channels-last "
-        f"convolutions over {len(decodes)} model calls; output RMS "
+        f"convolutions over {len(decodes)} model calls"
+        + (f", {n_vocodes} vocoder calls" if vocoder is not None else "")
+        + "; output RMS "
         + ", ".join(f"{10 * math.log10(float(np.mean(y ** 2))):.1f}"
                     for y in ys) + " dBFS")
     transfer = None
@@ -1110,7 +1392,9 @@ def phase_serve(path: str, dev, state,
         for d in (dev.type, "cpu"):
             t = lambda v: torch.tensor(v, device=d)  # noqa: E731
             fn = make_batch_convert_fn(
-                path_model(path, state, d, "float32"), cfg)
+                path_model(path, state, d, "float32"), cfg,
+                vocoder=None if vstate is None else pwg.load_vocoder(
+                    pwg.PWGSpec(), vstate, d, "float32"))
             outs.append(fn(x1.to(d), t([3]), t(a.xmin), t(a.xmax),
                            t(a.f0_mu[[1]]), t(a.f0_sigma[[1]]),
                            t(a.f0_mu[[3]]), t(a.f0_sigma[[3]]),
@@ -1213,6 +1497,7 @@ def phase_rate(path: str, conv, card: str, dev, batch: int,
     from tpuvc_torch.convert import pipeline
     from tpuvc_torch.dsp import d4c, dio, harvest, stonemask
     from tpuvc_torch.dsp.cheaptrick import cheaptrick
+    from tpuvc_torch.models import pwg
     cfg = conv.cfg
     rng = np.random.default_rng(1)
     xs, src = batch_of(rng, batch, dur_s)
@@ -1278,8 +1563,13 @@ def phase_rate(path: str, conv, card: str, dev, batch: int,
         sp_c = stage("model", model)
         noise = stage("noise", lambda: pipeline.synthesis_noise(
             range(batch), n * cfg.hop, dev))
-        y = stage("synthesis", lambda: pipeline.synthesize(
-            f0, sp_c, ap, noise))
+        voc = conv.vocoder
+        if voc is not None:
+            y = stage("vocode", lambda: voc(noise, pwg.aux_features(
+                f0, sp_c, ap, cfg, voc.spec)))
+        else:
+            y = stage("synthesis", lambda: pipeline.synthesize(
+                f0, sp_c, ap, noise))
         stage("ulaw8+d2h", lambda: conv._encode_transfer(y).cpu())
     say(f"[5 rate] {path}: stages (s): "
         + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
@@ -2622,8 +2912,11 @@ def yardsticks_of(sites) -> list:
             and k != "library_ms"]
 
 
-def kernels_record(kern: dict, launches: dict) -> dict:
-    """The JSON record: one entry per kernel, at its first site."""
+def kernels_record(kern: dict, launches: dict,
+                   vocoder: dict | None = None) -> dict:
+    """The JSON record: one entry per kernel, at its first site; K13's
+    from the vocoder phase where it ran, with its launches on the served
+    pwg path."""
     out = []
     for name, src, rep, path in KERNELS:
         sites = kern[name]
@@ -2657,7 +2950,23 @@ def kernels_record(kern: dict, launches: dict) -> dict:
                 "dependent_steps", "throughput_bound_ms", "library_ms",
                 "site")})
         out.append(entry)
+    if vocoder is not None:
+        out.append(vocoder_record(vocoder, launches["pwg"]["pwg"]))
     return {"kernels": out}
+
+
+def vocoder_record(vocoder: dict, launches: int) -> dict:
+    """K13's entry of the JSON record, at its first site: its launches
+    are those of the pwg path's served requests (phase 4)."""
+    site = vocoder["sites"][0]
+    return {"name": "pwg", "route": "cuda",
+            "source": "tpuvc_torch/csrc/pwg.cu",
+            "replaces": "none (the JAX package has no vocoder)",
+            "launches": launches, "launches_path": "pwg",
+            "in_call_ms": vocoder["in_call_ms"],
+            **{k: site[k] for k in (
+                "max_abs_err", "ms", "b2b_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "site")}}
 
 
 def main() -> int:
@@ -2677,6 +2986,8 @@ def main() -> int:
     phase_build()
     state = build_state()
     kern = phase_kernels(dev, state)
+    torch.cuda.empty_cache()
+    vocoder = phase_vocoder(dev, profile_dir=args.out)
     torch.cuda.empty_cache()
     launches, snrs, transfers, rates, entry = {}, {}, {}, {}, None
     for path in PATHS:
@@ -2731,7 +3042,8 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": smi, "kernels": kern, "launches": launches,
+            json.dump({"card": smi, "kernels": kern, "vocoder": vocoder,
+                       "launches": launches,
                        "card_vs_cpu_snr_db": snrs,
                        "transfer_snr_db": transfers, "entry_points": entry,
                        "rate": rates, "train": train, "convert": convert,
@@ -2739,7 +3051,7 @@ def main() -> int:
                        "bench": bench, "quality": quality},
                       f, indent=1)
     say(f"[5 rate] card: {smi}")
-    say(json.dumps(kernels_record(kern, launches)))
+    say(json.dumps(kernels_record(kern, launches, vocoder)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ HAND_KEPT = {
     "nccf": ("events", "scan", "extend", "harmonics", "window", "smooth",
              "norm"),
     "fused": DIO + ("conv", "d2s", "norm"),
+    "pwg": DIO + ("norm",),
 }
 
 

@@ -26,9 +26,12 @@ and frame-rate conditioning c [B, aux, n], T = n * hop:
 Non-causal, no dropout (inference).  The parameters carry the published
 module's names, so a trained generator's state dict loads as it is;
 weight norm (``weight_g`` / ``weight_v``) is folded into plain weights on
-load.  The module's parameters are in its compute type (bf16 on the card),
-so every layer runs there on cuDNN's convolutions; the waveform comes back
-in float32.
+load.  The module's parameters are in its compute type (bf16 on the card);
+the waveform comes back in float32.  Each residual layer of a bf16
+generator on the card is one launch of K13 (``ops/pwg.py``), which keeps
+the layer's gate input and gated unit out of device memory; a float32
+generator on the card runs its layers on cuDNN's and cuBLAS's kernels, and
+on the CPU each layer is K13's plain version.
 
 In this pipeline the converted features are WORLD's, so the conditioning
 is made from them (``aux_features``): ``aux - 3`` log mel-band energies of
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.dsp.constants import WorldConfig
+from tpuvc_torch.ops import pwg as pwg_op
 from tpuvc_torch.utils.device import resolve
 from tpuvc_torch.utils.profiling import span
 
@@ -129,6 +133,14 @@ def _conv_rows(h: torch.Tensor, weight: torch.Tensor, bias=None,
     return y.permute(0, 2, 3, 1).squeeze(1)
 
 
+def eager_route(x: torch.Tensor) -> bool:
+    """Whether a residual layer on rows like x runs PyTorch's launches
+    (``_ResidualBlock.eager``): float32 on the card.  Every other layer
+    goes through ``ops/pwg.py:residual_layer``, which launches K13 for
+    bf16 on the card and takes its plain version on the CPU."""
+    return x.device.type == "cuda" and x.dtype == torch.float32
+
+
 def _mat(conv: nn.Conv1d) -> torch.Tensor:
     """A 1x1 convolution's weight as the [Cin, Cout] operand of a
     product over rows (a view)."""
@@ -147,11 +159,40 @@ class _ResidualBlock(nn.Module):
                                      1, bias=False)
         self.conv1x1_out = nn.Conv1d(half, spec.residual_channels, 1)
         self.conv1x1_skip = nn.Conv1d(half, spec.skip_channels, 1)
+        self._operands = None
 
-    def forward(self, x, c, skip):
+    def operands(self) -> pwg_op.Operands:
+        """The layer's weights as K13 reads them, laid out once and kept
+        (``load_vocoder`` lays them out when it puts the module on its
+        device; a move or cast of the module lays them out again)."""
+        if self._operands is None:
+            self._operands = pwg_op.layer_operands(*(p.detach() for p in (
+                self.conv.weight, self.conv.bias, self.conv1x1_aux.weight,
+                self.conv1x1_skip.weight, self.conv1x1_out.weight,
+                self.conv1x1_out.bias)))
+        return self._operands
+
+    def _apply(self, fn, *args, **kwargs):
+        # a move or cast gives the parameters new tensors
+        self._operands = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def forward(self, x, c, skip, out=None):
         """x [B, L, res] and c [B L, aux] rows; adds this layer's skip
         (without its bias) into ``skip`` [B L, skip_channels] and returns
-        the next x."""
+        the next x.  Float32 on the card runs :meth:`eager`; anything else
+        is one call of ``ops/pwg.py:residual_layer`` (the next x written
+        into ``out`` where given): K13 in bf16 on the card, its plain
+        version on the CPU."""
+        if eager_route(x):
+            return self.eager(x, c, skip)
+        return pwg_op.residual_layer(x, c, skip, self.operands(),
+                                     self.dilation, out)
+
+    def eager(self, x, c, skip):
+        """The layer as PyTorch's launches: cuDNN's dilated convolution,
+        then cuBLAS's products adding into their destinations and ATen's
+        gate between them."""
         bsz, length, _ = x.shape
         h = _conv_rows(x, self.conv.weight, self.conv.bias, self.dilation,
                        self.conv.padding[0]).view(bsz * length, -1)
@@ -160,9 +201,9 @@ class _ResidualBlock(nn.Module):
         g = torch.tanh(a).mul_(torch.sigmoid(b))
         skip.addmm_(g, _mat(self.conv1x1_skip))
         r = math.sqrt(0.5)
-        out = torch.addmm(x.view(bsz * length, -1), g,
-                          _mat(self.conv1x1_out), beta=r, alpha=r)
-        return out.add_(self.conv1x1_out.bias, alpha=r).view(bsz, length, -1)
+        y = torch.addmm(x.view(bsz * length, -1), g, _mat(self.conv1x1_out),
+                        beta=r, alpha=r)
+        return y.add_(self.conv1x1_out.bias, alpha=r).view(bsz, length, -1)
 
 
 class _Stretch(nn.Module):
@@ -211,10 +252,10 @@ class _ConvInUpsampleNetwork(nn.Module):
 class ParallelWaveGAN(nn.Module):
     """The generator: ``forward(z [B, T], c [B, aux, n]) -> [B, T]``
     float32, T = n * hop.  Between layers the activations are
-    channels-last rows [B, T, C]: the dilated convolutions are cuDNN's
-    channels-last ones, the 1x1s products over the rows that add into
-    their destination (the conditioning into the gate's input, each
-    layer's skip into the sum; the skip biases are added once)."""
+    channels-last rows [B, T, C]; each layer adds its skip into one sum
+    (the skip biases are added once).  Where the layers run K13, the stack
+    keeps two x buffers and each layer writes the next x into the one its
+    input is not in."""
 
     def __init__(self, spec: PWGSpec = PWGSpec()):
         super().__init__()
@@ -251,9 +292,13 @@ class ParallelWaveGAN(nn.Module):
                             _mat(first)).view(bsz, z.shape[-1], -1)
             skip = torch.zeros((c.shape[0], spec.skip_channels), dtype=dtype,
                                device=c.device)
+            spare = None if eager_route(x) else torch.empty_like(x)
             bias = 0.0
             for layer in self.conv_layers:
-                x = layer(x, c, skip)
+                y = layer(x, c, skip, spare)
+                if spare is not None:
+                    spare = x
+                x = y
                 bias = bias + layer.conv1x1_skip.bias.float()
             h = torch.relu_(skip.add_(bias.to(dtype)).mul_(
                 math.sqrt(1.0 / len(self.conv_layers))))
@@ -296,7 +341,18 @@ def load_vocoder(spec: PWGSpec, state: dict, device="cuda",
     # the statistics stay in float32 whatever the compute type
     for k in ("aux_mean", "aux_scale"):
         setattr(model, k, full[k].to(device, torch.float32))
+    for layer in model.conv_layers:
+        layer.operands()
     return model
+
+
+def vocoder_kernels(vocoder: ParallelWaveGAN) -> tuple:
+    """The hand-written kernels (``ops._build.KERNEL_NAMES``) that a call
+    of ``vocoder`` launches: K13 (``"pwg"``), once a layer, for a bf16
+    generator on the card; none otherwise."""
+    w = vocoder.first_conv.weight
+    return (("pwg",) if w.device.type == "cuda" and not eager_route(w)
+            else ())
 
 
 def save(path: str, spec: PWGSpec, state: dict) -> None:

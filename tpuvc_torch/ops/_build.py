@@ -50,6 +50,8 @@ SIGNATURES = {
     "tpuvc_extend_scans": (_P, _P, _P, _I, _I, _I, _F, _P),
     "tpuvc_norm_lrelu": (_P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
     "tpuvc_merge_channels": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    "tpuvc_pwg_residual": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                           _P),
 }
 
 _lock = threading.Lock()
@@ -112,7 +114,7 @@ def lib() -> ctypes.CDLL:
 
 # the launch counters' names, one per kernel, in the order of their records
 KERNEL_NAMES = ("events", "harmonics", "window", "smooth", "topk", "refine",
-                "scan", "conv", "d2s", "extend", "norm", "merge")
+                "scan", "conv", "d2s", "extend", "norm", "merge", "pwg")
 _counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 
